@@ -1,0 +1,21 @@
+"""Environment registry (port of ``mbd_tpu/envs/__init__.py``)."""
+
+from .base import Env, State  # noqa: F401
+
+
+def get_env(env_name: str, device="cpu"):
+    if env_name == "hopper":
+        from .hopper import Hopper
+        return Hopper(device)
+    if env_name == "walker2d":
+        from .walker2d import Walker2d
+        return Walker2d(device)
+    if env_name == "halfcheetah":
+        from .halfcheetah import Halfcheetah
+        return Halfcheetah(device)
+    if env_name == "cartpole":
+        from .cartpole import Cartpole
+        return Cartpole(device)
+    raise NotImplementedError(
+        f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
+        "(see ROADMAP.md, Queue 1 item 2)")

@@ -1,0 +1,386 @@
+"""Whole-rollout CUDA kernel for Hopper: wrapper, model header, build.
+
+Replaces the TPU kernel ``mbd_tpu/ops/rollout_pallas.py::make_rollout_kernel``
+(reached through ``rollout_rewards_pallas``) in its base mode: per-step
+rewards and the validity flag, from a shared or per-sample initial state.
+The kernel body is written once by hand (``csrc/rollout.cu``); each model
+arrives as a small generated header (``model_header``) of sizes and
+``constexpr`` tables, so the kernel's loops over the topology unroll at
+compile time. The library is built with ``nvcc`` at first use, into
+``build/rollout/<hash>/`` beside the package, cached by a hash of the
+sources and the header, and bound with ``ctypes``.
+
+``rollout_rewards_cuda`` keeps the signature and layout of
+``rollout_rewards_pallas``: ``Y0s [N, H, nu]`` in, ``(rews [N, H],
+bad [N])`` out. A CPU tensor takes the plain version (``rollout_rewards``,
+the torch engine); a CUDA tensor launches the kernel or raises.
+
+Coverage: slide and hinge joints, plane–capsule and capsule–capsule pairs
+(hopper, walker2d, halfcheetah, cartpole). A model with a free joint or a
+sphere or box pair is refused with ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..rollout.fused import rollout_rewards
+from ..sim import batched as BT
+from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
+from ..sim.system import (HINGE, PAIR_CAPSULE_CAPSULE, PAIR_PLANE_CAPSULE,
+                          SLIDE, System)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "build", "rollout")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
+
+# Launches of the CUDA kernel, counted where the kernel is launched.
+LAUNCHES = 0
+
+REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2}
+
+
+def check_supported(sys: System) -> None:
+    """Raise NotImplementedError for what the kernel does not cover."""
+    kinds = set(sys.jnt_type)
+    if not kinds <= {SLIDE, HINGE}:
+        raise NotImplementedError(
+            "the CUDA rollout kernel covers slide and hinge joints only "
+            f"(joint types {sorted(kinds)}); free joints are ROADMAP.md "
+            "Queue 2 K2")
+    pair_kinds = {k for k, _, _ in sys.contact_pairs}
+    if not pair_kinds <= {PAIR_PLANE_CAPSULE, PAIR_CAPSULE_CAPSULE}:
+        raise NotImplementedError(
+            "the CUDA rollout kernel covers plane–capsule and "
+            "capsule–capsule pairs only (pair kinds "
+            f"{sorted(pair_kinds)}); sphere and box pairs are ROADMAP.md "
+            "Queue 2 K1/K2")
+
+
+# ---------------------------------------------------------------------------
+# generated model header
+# ---------------------------------------------------------------------------
+
+def _lit(v, kind: str) -> str:
+    if kind == "int":
+        return str(int(v))
+    if kind == "bool":
+        return "true" if v else "false"
+    return "%.9ef" % float(np.float32(v))
+
+
+def _table(name: str, kind: str, values, stride: int = 0) -> str:
+    """A constexpr accessor over a flat table, ``name(i)`` or, with a
+    stride, ``name(i, k)``; the index folds once the caller's loop is
+    unrolled."""
+    vals = list(values) or [0]            # no zero-length arrays
+    body = ", ".join(_lit(v, kind) for v in vals)
+    if stride:
+        args, idx = "int i, int k", f"{stride} * i + k"
+    else:
+        args, idx = "int i", "i"
+    return (f"__host__ __device__ constexpr {kind} {name}({args}) {{\n"
+            f"  constexpr {kind} v[] = {{{body}}};\n"
+            f"  return v[{idx}];\n}}\n")
+
+
+def model_tables(sys: System, n_frames: int, reward) -> Dict:
+    """Sizes, scalar constants and tables of the generated header, each
+    rounded where the torch engine rounds it (sim/batched.py)."""
+    check_supported(sys)
+    tc = BT.topo(sys)
+    nv, nj = sys.nv, sys.njnt
+    f32, recip32 = BT.f32, BT.recip32
+    h = float(sys.host("dt"))
+    damping = sys.host("dof_damping")
+    jrange = sys.host("jnt_range")
+    stiff = sys.host("jnt_stiffness")
+    qspring = sys.host("qpos_spring")
+    meff_rest = sys.host("dof_limit_meff")
+    b_lim = float(sys.host("limit_damping"))
+    gpos, gquat = sys.host("geom_pos"), sys.host("geom_quat")
+    size, fric = sys.host("geom_size"), sys.host("geom_friction")
+    crange, gear = sys.host("actuator_ctrlrange"), sys.host("actuator_gear")
+    P = sys.host("mask_dof_prevdof")
+
+    anc = [[False] * nv for _ in range(nv)]       # strict dof-tree ancestors
+    for i in range(nv):
+        j = tc.dof_parent[i]
+        while j >= 0:
+            anc[i][j] = True
+            j = tc.dof_parent[j]
+    pairs = set(tc.dof_pairs)
+
+    limj = [j for j in range(nj) if sys.jnt_limited[j]]
+    springs = [j for j in range(nj) if stiff[j] != 0.0]
+
+    pair_rows, con_sgn = [], []
+    for kind, ga, gb in sys.contact_pairs:
+        pair_rows.append(len(con_sgn))
+        sgn = np.zeros(nv)
+        for i in tc.ancdof_body[sys.geom_bodyid[gb]]:
+            sgn[i] += 1.0
+        for i in tc.ancdof_body[sys.geom_bodyid[ga]]:
+            sgn[i] -= 1.0
+        con_sgn += [sgn] * (2 if kind == PAIR_PLANE_CAPSULE else 1)
+    ncon = len(con_sgn)
+
+    hs = sys.cached("height_sensors", lambda: BT.height_sensors(sys))
+    sensors, floor_z = hs if hs is not None else ([], 0.0)
+
+    name, params = reward
+    eps = float(sys.host("friction_vel_tol"))
+    sizes = dict(NQ=sys.nq, NV=nv, NU=sys.nu, NB=sys.nbody, NJ=nj,
+                 NFRAMES=n_frames, NPAIR=len(sys.contact_pairs), NCON=ncon,
+                 NLIMJ=len(limj), NC=ncon + 2 * len(limj),
+                 NSPRING=len(springs), NSENSOR=len(sensors))
+    scalars = dict(
+        kH=h, kInvH=recip32(h),
+        kBetaInvH=f32(f32(BAUMGARTE_BETA) * recip32(h)),
+        kVPushMax=V_PUSH_MAX, kEps2=eps * eps,
+        kContactK=float(sys.host("contact_stiffness")),
+        kContactB=float(sys.host("contact_damping")),
+        kLimitK=float(sys.host("limit_stiffness")),
+        kQdDiverged=BT.QD_DIVERGED, kZmin=floor_z - BT.ROOT_SINK_TOL,
+        kZTarget=params.get("z_target", 0.0),
+        kInvDt=params.get("inv_dt", 0.0),
+        kCtrlCost=params.get("ctrl_cost", 0.0))
+    ints = dict(kGsPasses=N_GS_PASSES, kHinge=HINGE,
+                kPlaneCapsule=PAIR_PLANE_CAPSULE,
+                kReward=REWARD_IDS[name],
+                **{f"kReward{k.capitalize()}": v
+                   for k, v in REWARD_IDS.items()})
+    cp = sys.contact_pairs
+    tables = [
+        ("body_parent", "int", sys.body_parentid),
+        ("body_pos", "float", sys.host("body_pos").ravel(), 3),
+        ("body_quat", "float", sys.host("body_quat").ravel(), 4),
+        ("body_ipos", "float", sys.host("body_ipos").ravel(), 3),
+        ("body_iquat", "float", sys.host("body_iquat").ravel(), 4),
+        ("body_mass", "float", sys.host("body_mass")),
+        ("body_inertia", "float", sys.host("body_inertia").ravel(), 3),
+        ("gravity", "float", sys.host("gravity")),
+        ("jnt_type", "int", sys.jnt_type),
+        ("jnt_body", "int", sys.jnt_bodyid),
+        ("jnt_qadr", "int", sys.jnt_qposadr),
+        ("jnt_dadr", "int", sys.jnt_dofadr),
+        ("jnt_axis", "float", sys.host("jnt_axis").ravel(), 3),
+        ("jnt_pos", "float", sys.host("jnt_pos").ravel(), 3),
+        ("init_q", "float", sys.host("init_q")),
+        ("dof_body", "int", sys.dof_bodyid),
+        ("armature", "float", sys.host("dof_armature")),
+        ("damping", "float", damping),
+        ("h_damping", "float", [h * float(d) for d in damping]),
+        ("dof_anc", "bool", [anc[i][j] for i in range(nv)
+                             for j in range(nv)], nv),
+        ("m_pair", "bool", [(i, j) in pairs for i in range(nv)
+                            for j in range(nv)], nv),
+        ("prev_same", "bool", [P[i, j] > 0 and sys.dof_bodyid[i] ==
+                               sys.dof_bodyid[j] for i in range(nv)
+                               for j in range(nv)], nv),
+        ("act_dadr", "int", [sys.jnt_dofadr[j] for j in sys.actuator_jntid]),
+        ("act_lo", "float", crange[:, 0]),
+        ("act_hi", "float", crange[:, 1]),
+        ("act_gear", "float", gear),
+        ("spring_dadr", "int", [sys.jnt_dofadr[j] for j in springs]),
+        ("spring_qadr", "int", [sys.jnt_qposadr[j] for j in springs]),
+        ("spring_k", "float", [stiff[j] for j in springs]),
+        ("spring_q0", "float", [qspring[sys.jnt_qposadr[j]]
+                                for j in springs]),
+        ("limj_dadr", "int", [sys.jnt_dofadr[j] for j in limj]),
+        ("limj_qadr", "int", [sys.jnt_qposadr[j] for j in limj]),
+        ("limj_lo", "float", [jrange[j, 0] for j in limj]),
+        ("limj_hi", "float", [jrange[j, 1] for j in limj]),
+        ("limj_dlim", "float", [h * b_lim * float(meff_rest[
+            sys.jnt_dofadr[j]]) for j in limj]),
+        ("pair_kind", "int", [k for k, _, _ in cp]),
+        ("pair_start", "int", pair_rows),
+        ("pair_body_a", "int", [sys.geom_bodyid[a] for _, a, _ in cp]),
+        ("pair_body_b", "int", [sys.geom_bodyid[b] for _, _, b in cp]),
+        ("pair_pos_a", "float", [x for _, a, _ in cp for x in gpos[a]], 3),
+        ("pair_quat_a", "float", [x for _, a, _ in cp for x in gquat[a]],
+         4),
+        ("pair_pos_b", "float", [x for _, _, b in cp for x in gpos[b]], 3),
+        ("pair_quat_b", "float", [x for _, _, b in cp for x in gquat[b]],
+         4),
+        ("pair_r1", "float", [size[a, 0] for _, a, _ in cp]),
+        ("pair_hl1", "float", [size[a, 1] for _, a, _ in cp]),
+        ("pair_r2", "float", [size[b, 0] for _, _, b in cp]),
+        ("pair_hl2", "float", [size[b, 1] for _, _, b in cp]),
+        ("pair_r12", "float", [float(size[a, 0]) + float(size[b, 0])
+                               for _, a, b in cp]),
+        ("pair_mu", "float", [max(fric[a, 0], fric[b, 0])
+                              for _, a, b in cp]),
+        ("con_sgn", "float", [x for s in con_sgn for x in s], nv),
+        ("sensor_qadr", "int", [qa for qa, _ in sensors]),
+        ("sensor_off", "float", [off for _, off in sensors]),
+    ]
+    return dict(sizes=sizes, scalars=scalars, ints=ints, tables=tables)
+
+
+def model_header(env) -> str:
+    """The generated ``model.h`` for ``env``'s model, substeps and reward."""
+    t = model_tables(env.sys, env.n_frames, env.kernel_reward)
+    out = ["// Generated by mbd_tpu_torch/ops/rollout_cuda.py::model_header.",
+           "#pragma once", ""]
+    out += [f"#define {k} {v}" for k, v in t["sizes"].items()]
+    out += [""]
+    out += [f"constexpr int {k} = {v};" for k, v in t["ints"].items()]
+    out += [f"constexpr float {k} = {_lit(v, 'float')};"
+            for k, v in t["scalars"].items()]
+    out += [""]
+    out += [_table(*spec) for spec in t["tables"]]
+    return "\n".join(out)
+
+
+# ---------------------------------------------------------------------------
+# build and bind
+# ---------------------------------------------------------------------------
+
+class Built:
+    """A loaded kernel library and what the build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: str, ptxas: str,
+                 seconds: float):
+        self.lib = lib
+        self.path = path
+        self.ptxas = ptxas          # nvcc -Xptxas -v report
+        self.seconds = seconds      # 0.0 when loaded from the cache
+        lib.mbd_rollout.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.mbd_rollout.restype = ctypes.c_int
+        lib.mbd_rollout_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.mbd_rollout_attrs.restype = ctypes.c_int
+
+    def attrs(self) -> Dict[str, int]:
+        """Registers and local bytes per thread, resident blocks per SM."""
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        err = self.lib.mbd_rollout_attrs(*[ctypes.byref(v) for v in vals])
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: error {err}")
+        return dict(zip(("regs", "local_bytes", "blocks_per_sm",
+                         "threads_per_block"), (v.value for v in vals)))
+
+
+_LIBS: Dict[str, Built] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA rollout kernel is "
+                           "built from source at first use")
+    return path
+
+
+def build(env) -> Built:
+    """Build (or load from the cache) the kernel library for ``env``."""
+    header = model_header(env)
+    with open(os.path.join(CSRC, "rollout.cu")) as f:
+        source = f.read()
+    digest = hashlib.sha256(
+        (source + header + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
+    if digest in _LIBS:
+        return _LIBS[digest]
+    out_dir = os.path.join(BUILD_DIR, digest)
+    so_path = os.path.join(out_dir, "librollout.so")
+    log_path = os.path.join(out_dir, "ptxas.txt")
+    seconds = 0.0
+    if not os.path.exists(so_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+        try:
+            with open(os.path.join(tmp, "model.h"), "w") as f:
+                f.write(header)
+            shutil.copy(os.path.join(CSRC, "rollout.cu"), tmp)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-I", tmp, "-o",
+                 os.path.join(tmp, "librollout.so"),
+                 os.path.join(tmp, "rollout.cu")],
+                capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            with open(os.path.join(tmp, "ptxas.txt"), "w") as f:
+                f.write(proc.stderr)
+            try:
+                os.replace(tmp, out_dir)
+            except OSError:        # another process built it first
+                pass
+        finally:
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+    with open(log_path) as f:
+        ptxas = f.read()
+    built = Built(ctypes.CDLL(so_path), so_path, ptxas, seconds)
+    _LIBS[digest] = built
+    return built
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Y0s [N, H, nu] → (rews [N, H], bad [N]), rolled out from
+    ``state0.pipeline_state`` (q [nq] shared or [nq, N] per sample).
+
+    CPU tensors take the plain torch engine; CUDA tensors launch the
+    kernel or raise."""
+    global LAUNCHES
+    sys = env.sys
+    check_supported(sys)
+    if not Y0s.is_cuda:
+        rews, _, bad = rollout_rewards(env, state0, Y0s)
+        return rews, bad
+    N, H, nu = Y0s.shape
+    if nu != sys.nu:
+        raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
+    if Y0s.dtype != torch.float32:
+        raise TypeError(f"Y0s must be float32, not {Y0s.dtype}")
+    q0, qd0 = state0.pipeline_state.q, state0.pipeline_state.qd
+    per_sample = q0.dim() == 2
+    if per_sample and (q0.shape != (sys.nq, N) or qd0.shape != (sys.nv, N)):
+        raise ValueError(f"per-sample q0/qd0 must be [{sys.nq}, {N}] / "
+                         f"[{sys.nv}, {N}]")
+    if not per_sample and (q0.shape != (sys.nq,) or qd0.shape != (sys.nv,)):
+        raise ValueError(f"q0/qd0 must be [{sys.nq}] / [{sys.nv}]")
+    for t in (q0, qd0):
+        if t.device != Y0s.device or t.dtype != torch.float32:
+            raise ValueError("q0/qd0 must be float32 on the device of Y0s")
+    q0, qd0 = q0.contiguous(), qd0.contiguous()
+    U = Y0s.permute(1, 2, 0).contiguous()                 # [H, nu, N]
+    rews = torch.empty((H, N), dtype=torch.float32, device=Y0s.device)
+    bad = torch.empty((N,), dtype=torch.float32, device=Y0s.device)
+    # header generation and source hashing once per model, not per launch
+    built = sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}",
+                       lambda: build(env))
+    with torch.cuda.device(Y0s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = built.lib.mbd_rollout(
+            q0.data_ptr(), qd0.data_ptr(), int(per_sample), U.data_ptr(),
+            rews.data_ptr(), bad.data_ptr(), N, H, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA rollout kernel launch failed: error {err}")
+    LAUNCHES += 1
+    return rews.t(), bad
+

@@ -36,6 +36,7 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers", "tpu: requires real TPU hardware")
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: requires a CUDA card")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,163 @@
+"""The torch rollout (mbd_tpu_torch/rollout/fused.py) against the JAX one
+(mbd_tpu/rollout/fused.py), and the CUDA kernel's wrapper
+(mbd_tpu_torch/ops/rollout_cuda.py) on the CPU.
+
+Both packages start from the same reset state (JAX's) and roll out the
+same controls, made with numpy from a seed, at N = 8 and H = 10.
+Tolerances:
+
+* the first env step's rewards to atol 1e-5, the one of
+  tests/test_rollout_pallas.py:24 (measured at most 4.5e-7);
+* the validity flags equal;
+* hopper and cartpole: every step's reward to atol 1e-4. XLA
+  reassociates float32 inside the jitted JAX rollout, and the largest
+  per-step gap over seeds 1 to 3 (ragged and per-sample cases included)
+  was 4.8e-5 on hopper and 1.2e-7 on cartpole;
+* walker2d and halfcheetah: each sample's mean reward over the horizon to
+  atol 5e-3, the tolerance tests/test_fused_planner.py:20-21 states for
+  the same chaos. A jitted and an eager JAX walker2d substep already
+  differ by 2.7e-5 in qd, and a contact that switches on a few substeps
+  apart turns that into per-step reward gaps of up to 2.5e-2 on walker2d
+  and 1.0e-3 on halfcheetah; the per-sample means stayed within 2.5e-3
+  over seeds 1 to 3.
+
+The engine's arithmetic itself is held at 1e-5 per substep in
+tests/test_torch_engine.py.
+
+The kernel itself (csrc/rollout.cu) is built with ``--fmad=false``: every
+multiply and add then rounds on its own, as in the plain version's
+separate elementwise kernels, and the two agree bit for bit on the card
+(``chip_smoke.py``, tests/test_torch_cuda.py). With contraction on,
+the kernel would fuse products into FMAs that the plain version rounds
+twice, and chaotic contact rollouts would drift apart from it.
+"""
+
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mbd_tpu import envs as jax_envs
+from mbd_tpu.rollout.fused import rollout_rewards as jax_rollout_rewards
+from mbd_tpu_torch import envs
+from mbd_tpu_torch.ops import rollout_cuda
+from mbd_tpu_torch.rollout.fused import rollout_rewards
+
+ATOL = 1e-5
+STEP_ATOL = 1e-4
+MEAN_ATOL = 5e-3
+# models whose contacts switch within the horizon: held on the mean
+CONTACT_CHAOS = ("walker2d", "halfcheetah")
+
+
+def _state(q, qd):
+    return SimpleNamespace(pipeline_state=SimpleNamespace(q=q, qd=qd))
+
+
+def _case(name, N, H, per_sample=False, seed=1):
+    """(JAX env, port env, JAX state, port state, Y0s) from one seed."""
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    js = jenv.reset(jax.random.PRNGKey(0)).pipeline_state
+    q, qd = np.asarray(js.q), np.asarray(js.qd)
+    rng = np.random.default_rng(seed)
+    if per_sample:
+        q = (q[:, None] + 0.01 * rng.normal(size=(q.shape[0], N))
+             ).astype(np.float32)
+        qd = np.repeat(qd[:, None], N, axis=1)
+    Y0s = rng.uniform(-1, 1, (N, H, tenv.action_size)).astype(np.float32)
+    return (jenv, tenv, _state(q, qd),
+            _state(torch.tensor(q), torch.tensor(qd)), Y0s)
+
+
+def _compare(name, N, H, per_sample=False):
+    jenv, tenv, jstate, tstate, Y0s = _case(name, N, H, per_sample)
+    r_j, _, bad_j = jax.jit(lambda q, qd, y: jax_rollout_rewards(
+        jenv, _state(q, qd), y))(jstate.pipeline_state.q,
+                                 jstate.pipeline_state.qd, Y0s)
+    r_t, qs, bad_t = rollout_rewards(tenv, tstate, torch.from_numpy(Y0s))
+    assert r_t.shape == (N, H) and bad_t.shape == (N,) and qs is None
+    r_j, r_t = np.asarray(r_j), r_t.numpy()
+    np.testing.assert_allclose(r_j[:, 0], r_t[:, 0], rtol=0, atol=ATOL)
+    if name in CONTACT_CHAOS:
+        np.testing.assert_allclose(r_j.mean(1), r_t.mean(1), rtol=0,
+                                   atol=MEAN_ATOL)
+    else:
+        np.testing.assert_allclose(r_j, r_t, rtol=0, atol=STEP_ATOL)
+    np.testing.assert_array_equal(np.asarray(bad_j), bad_t.numpy())
+
+
+@pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
+                                  "cartpole"])
+def test_rollout_rewards_match_jax(name):
+    _compare(name, N=8, H=10)
+
+
+def test_rollout_rewards_ragged_batch():
+    _compare("hopper", N=5, H=10)
+
+
+def test_rollout_rewards_per_sample_q0():
+    _compare("hopper", N=8, H=10, per_sample=True)
+
+
+def test_rollout_qs_trace():
+    """need_qs returns the post-step positions [H, nq, N], whose last step
+    the rewards are computed from."""
+    _, tenv, _, tstate, Y0s = _case("cartpole", N=4, H=3)
+    rews, qs, _ = rollout_rewards(tenv, tstate, torch.from_numpy(Y0s),
+                                  need_qs=True)
+    assert qs.shape == (3, tenv.sys.nq, 4)
+    assert torch.isfinite(qs).all()
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_cuda_wrapper_on_cpu_is_plain_version(per_sample):
+    _, tenv, _, tstate, Y0s = _case("cartpole", N=5, H=6,
+                                    per_sample=per_sample)
+    Y = torch.from_numpy(Y0s)
+    launches = rollout_cuda.LAUNCHES
+    r_k, bad_k = rollout_cuda.rollout_rewards_cuda(tenv, tstate, Y)
+    r_p, _, bad_p = rollout_rewards(tenv, tstate, Y)
+    assert rollout_cuda.LAUNCHES == launches      # no launch on the CPU
+    assert r_k.shape == (5, 6) and bad_k.shape == (5,)
+    assert torch.equal(r_k, r_p) and torch.equal(bad_k, bad_p)
+
+
+def test_model_header_hopper():
+    """The generated header carries hopper's sizes: 4 plane–capsule pairs
+    (8 contact rows) and 3 capsule–capsule pairs (3 rows), then 3 limited
+    joints (6 rows): 17 constraint rows."""
+    env = envs.get_env("hopper")
+    sizes = rollout_cuda.model_tables(env.sys, env.n_frames,
+                                      env.kernel_reward)["sizes"]
+    assert sizes == dict(NQ=6, NV=6, NU=3, NB=5, NJ=6, NFRAMES=20, NPAIR=7,
+                         NCON=11, NLIMJ=3, NC=17, NSPRING=0, NSENSOR=1)
+    header = rollout_cuda.model_header(env)
+    assert "#define NC 17" in header
+    assert "constexpr int kReward = 0;" in header        # progress
+    assert "constexpr float kH = 2.000000095e-03f;" in header   # f32 dt
+
+
+@pytest.mark.parametrize("name,nc", [("walker2d", 26), ("halfcheetah", 28),
+                                     ("cartpole", 2)])
+def test_model_header_sizes(name, nc):
+    env = envs.get_env(name)
+    assert f"#define NC {nc}\n" in rollout_cuda.model_header(env)
+
+
+@pytest.mark.parametrize("scene", ["ant", "pushT"])
+def test_kernel_refuses_free_joints_and_sphere_box(scene):
+    from mbd_tpu.envs.physics import asset_path
+    from mbd_tpu_torch.sim.system import load_mjcf
+
+    sys = load_mjcf(asset_path(f"{scene}.xml"))
+    env = SimpleNamespace(sys=sys, n_frames=5, kernel_reward=("progress", {}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rollout_cuda.model_header(env)
+    state = _state(sys.init_q, torch.zeros(sys.nv))
+    with pytest.raises(NotImplementedError):
+        rollout_cuda.rollout_rewards_cuda(env, state,
+                                          torch.zeros(2, 3, sys.nu))
+
