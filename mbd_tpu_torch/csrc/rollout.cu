@@ -19,12 +19,20 @@
 // --fmad=false so every multiply and add rounds as the torch version's
 // separate elementwise kernels do.
 //
+// Joints: free, hinge and slide. Pairs: plane–sphere, plane–capsule and
+// capsule–capsule. Rewards: one branch per env (kReward, model.h).
+//
 // What bounds it on this card: latency and registers, not bytes. Per
-// substep a sample does a few thousand dependent float ops over a working
-// set of about NC×NV M⁻¹Jᵀ entries (17×6 for hopper), which does not fit
-// in 255 registers and spills to local memory; one thread per sample at
-// N = 2048 fills 16 blocks of 128 threads, a small fraction of the 132 SMs.
-// Both are measured (PERF.md) and left for later work.
+// substep a sample does a few thousand dependent float ops (tens of
+// thousands on the humanoids) over a working set of about 2·NC×NV
+// constraint-row entries (17×6 for hopper, 36×23 for humanoidrun), which
+// does not fit in 255 registers and lives in local memory; one thread per
+// sample at N = 2048 fills 16 blocks of 128 threads, a small fraction of
+// the 132 SMs. On large models (kRowUnroll = 1) the per-row solve and the
+// Gauss–Seidel rows stay rolled loops: fully unrolled, NC tree solves over
+// NV dofs make a program that nvcc takes minutes to build, and the rows
+// are in local memory either way. Both are measured (PERF.md) and left
+// for later work.
 
 #include <cuda_runtime.h>
 
@@ -169,6 +177,35 @@ __device__ void substep(float* q, float* qd, const float* u) {
     for (int j = 0; j < NJ; ++j) {
       if (jnt_body(j) != b) continue;
       const int qa = jnt_qadr(j), da = jnt_dadr(j);
+      if (jnt_type(j) == kFree) {
+        // position and unit quaternion from q; 3 linear, then 3 angular
+        // columns (the rotation's columns c_k, paired with pos × c_k)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) pos[k] = q[qa + k];
+        const float qn = sqrtf(q[qa + 3] * q[qa + 3] + q[qa + 4] * q[qa + 4] +
+                               q[qa + 5] * q[qa + 5] + q[qa + 6] * q[qa + 6]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) quat[k] = q[qa + 3 + k] / qn;
+        const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
+        const float col[3][3] = {
+            {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y + w * z),
+             2.0f * (x * z - w * y)},
+            {2.0f * (x * y - w * z), 1.0f - 2.0f * (x * x + z * z),
+             2.0f * (y * z + w * x)},
+            {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
+             1.0f - 2.0f * (x * x + y * y)}};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            S[da + k][m] = 0.0f;
+            S[da + k][3 + m] = (m == k) ? 1.0f : 0.0f;
+            S[da + 3 + k][m] = col[k][m];
+          }
+          cross3(pos, col[k], S[da + 3 + k] + 3);
+        }
+        continue;
+      }
       const float ax[3] = {jnt_axis(j, 0), jnt_axis(j, 1), jnt_axis(j, 2)};
       float axis_w[3];
       qrot(quat, ax, axis_w);
@@ -402,8 +439,11 @@ __device__ void substep(float* q, float* qd, const float* u) {
 
 #if NC > 0
   // ---- constraint rows: contacts (pair order), then limits ----
+  // J is built in MinvJ and solved in place. Above kRowUnroll = 1 the
+  // per-row loops stay rolled (large models), which keeps the build short
+  // and changes no operation's order.
   float MinvJ[NC][NV], Row[NC][NV];
-  float vn[NC], vbias[NC], meff[NC], fnmax[NC];
+  float vn[NC], vbias[NC], cap[NC], meff[NC], fnmax[NC];
 #pragma unroll
   for (int p = 0; p < NPAIR; ++p) {
     const int ga = pair_body_a(p), gb = pair_body_b(p);
@@ -447,7 +487,22 @@ __device__ void substep(float* q, float* qd, const float* u) {
     // contact points of this pair: position, normal, depth
     float cpos[2][3], cn[2][3], cdep[2];
     int npts = 0;
-    if (pair_kind(p) == kPlaneCapsule) {
+    if (pair_kind(p) == kPlaneSphere) {
+      float n[3], d[3];
+      zhat(qa, n);
+      const float r = pair_r2(p);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) d[k] = pb[k] - pa[k];
+      const float dist = dot3(n, d) - r;
+      const float off = r + 0.5f * dist;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        cpos[0][k] = pb[k] - n[k] * off;
+        cn[0][k] = n[k];
+      }
+      cdep[0] = -dist;
+      npts = 1;
+    } else if (pair_kind(p) == kPlaneCapsule) {
       float n[3], axis[3];
       zhat(qa, n);
       zhat(qb, axis);
@@ -536,7 +591,6 @@ __device__ void substep(float* q, float* qd, const float* u) {
         wj[3 + k] = n[k];
         wr[3 + k] = d[k];
       }
-      float J[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         float aj = S[i][0] * wj[0], ar = S[i][0] * wr[0];
@@ -545,19 +599,13 @@ __device__ void substep(float* q, float* qd, const float* u) {
           aj = aj + S[i][k] * wj[k];
           ar = ar + S[i][k] * wr[k];
         }
-        J[i] = con_sgn(ci, i) * aj;
+        MinvJ[ci][i] = con_sgn(ci, i) * aj;  // J, solved in place below
         Row[ci][i] = con_sgn(ci, i) * ar;
-        MinvJ[ci][i] = J[i];
       }
-      ldl_solve(F, MinvJ[ci]);
-      float jmj = J[0] * MinvJ[ci][0];
-#pragma unroll
-      for (int i = 1; i < NV; ++i) jmj = jmj + J[i] * MinvJ[ci][i];
-      meff[ci] = 1.0f / (jmj + 1e-8f);
       const float aref = tmax(kContactK * dep - kContactB * vnc, 0.0f);
       vn[ci] = vnc;
       vbias[ci] = tmin(tmax(dep, 0.0f) * kBetaInvH, kVPushMax);
-      fnmax[ci] = meff[ci] * (aref * (dep > 0.0f ? 1.0f : 0.0f));
+      cap[ci] = aref * (dep > 0.0f ? 1.0f : 0.0f);
     }
   }
 #pragma unroll
@@ -568,22 +616,34 @@ __device__ void substep(float* q, float* qd, const float* u) {
       const int ci = NCON + 2 * l + e;
       const float s = (e == 0) ? 1.0f : -1.0f;
       const float vio = lim_vio[2 * l + e];
-      float J[NV];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        J[i] = (i == da) ? s : 0.0f;
-        Row[ci][i] = J[i];
-        MinvJ[ci][i] = J[i];
+        MinvJ[ci][i] = (i == da) ? s : 0.0f;
+        Row[ci][i] = MinvJ[ci][i];
       }
-      ldl_solve(F, MinvJ[ci]);
-      float jmj = J[0] * MinvJ[ci][0];
-#pragma unroll
-      for (int i = 1; i < NV; ++i) jmj = jmj + J[i] * MinvJ[ci][i];
-      meff[ci] = 1.0f / (jmj + 1e-8f);
       vn[ci] = s * qd[da];
       vbias[ci] = tmin(vio * kBetaInvH, kVPushMax);
-      fnmax[ci] = meff[ci] * (kLimitK * vio * (vio > 0.0f ? 1.0f : 0.0f));
+      cap[ci] = kLimitK * vio * (vio > 0.0f ? 1.0f : 0.0f);
     }
+  }
+
+  // ---- M⁻¹Jᵀ and effective masses, one tree solve per row ----
+#pragma unroll (kRowUnroll)
+  for (int c = 0; c < NC; ++c) {
+    float J[NV], x[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      J[i] = MinvJ[c][i];
+      x[i] = J[i];
+    }
+    ldl_solve(F, x);
+    float jmj = J[0] * x[0];
+#pragma unroll
+    for (int i = 1; i < NV; ++i) jmj = jmj + J[i] * x[i];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) MinvJ[c][i] = x[i];
+    meff[c] = 1.0f / (jmj + 1e-8f);
+    fnmax[c] = meff[c] * cap[c];
   }
 
   // ---- projected Gauss–Seidel sweep ----
@@ -592,7 +652,7 @@ __device__ void substep(float* q, float* qd, const float* u) {
   for (int c = 0; c < NC; ++c) fns[c] = 0.0f;
 #pragma unroll 1
   for (int pass = 0; pass < kGsPasses; ++pass) {
-#pragma unroll
+#pragma unroll (kRowUnroll)
     for (int c = 0; c < NC; ++c) {
       float jacc = MinvJ[c][0] * rhs[0];
 #pragma unroll
@@ -615,7 +675,28 @@ __device__ void substep(float* q, float* qd, const float* u) {
   for (int i = 0; i < NV; ++i) qd[i] = qd[i] + kH * rhs[i];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    q[jnt_qadr(j)] = q[jnt_qadr(j)] + kH * qd[jnt_dadr(j)];
+    const int qa = jnt_qadr(j), da = jnt_dadr(j);
+    if (jnt_type(j) != kFree) {
+      q[qa] = q[qa] + kH * qd[da];
+      continue;
+    }
+    // free joint: position by Euler, orientation by the exponential map
+    // of the new angular velocity, renormalised (sim/batched.py
+    // integrate_pos_b)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q[qa + k] = q[qa + k] + kH * qd[da + k];
+    const float* w = qd + da + 3;
+    const float wn = sqrtf(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
+    const float half = 0.5f * (wn * kH);
+    const float sinc =
+        (wn < 1e-12f) ? 0.5f * kH : sinf(half) / tmax(wn, 1e-12f);
+    const float dq[4] = {cosf(half), w[0] * sinc, w[1] * sinc, w[2] * sinc};
+    float qn[4];
+    qmul(q + qa + 3, dq, qn);
+    const float nrm = sqrtf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] +
+                            qn[3] * qn[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[qa + 3 + k] = qn[k] / nrm;
   }
 }
 
@@ -662,8 +743,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
       r = (q[0] - x_prev) * kInvDt - kCtrlCost * cost;
-    } else {  // swing-up
+    } else if (kReward == kRewardSwingup) {
       r = cosf(q[1]) - fabsf(qd[0]);
+    } else if (kReward == kRewardRun) {  // free root: torso (x, y, z) = q[0:3]
+      r = q[0] - tmin(tmax(fabsf(q[2] - kZTarget), -1.0f), 1.0f) -
+          0.1f * fabsf(q[1]);
+    } else if (kReward == kRewardStandup) {
+      r = 1.5f - tmin(tmax(fabsf(q[2] - kZTarget), -2.0f), 1.0f) -
+          0.1f * fabsf(q[0]) - 0.1f * fabsf(q[1]);
+    } else {  // healthy velocity: forward speed + healthy − ctrl_cost·Σu²
+      float cost = u[0] * u[0];
+#pragma unroll
+      for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
+      const float healthy =
+          (q[2] >= kZLow && q[2] <= kZHigh) ? 1.0f : 0.0f;
+      r = (q[0] - x_prev) / kDt + healthy - kCtrlCost * cost;
     }
     rews[t * N + n] = r;
   }

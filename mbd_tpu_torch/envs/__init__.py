@@ -16,6 +16,15 @@ def get_env(env_name: str, device="cpu"):
     if env_name == "cartpole":
         from .cartpole import Cartpole
         return Cartpole(device)
+    if env_name == "ant":
+        from .ant import Ant
+        return Ant(device)
+    if env_name == "humanoidrun":
+        from .humanoidrun import HumanoidRun
+        return HumanoidRun(device)
+    if env_name == "humanoidstandup":
+        from .humanoidstandup import HumanoidStandup
+        return HumanoidStandup(device)
     raise NotImplementedError(
         f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
         "(see ROADMAP.md, Queue 1 item 2)")

@@ -24,7 +24,8 @@ from .base import Env, State
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "mbd_tpu",
                          "assets")
 SNAPSHOT_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
-MODELS = ("hopper", "walker2d", "halfcheetah", "cartpole")
+MODELS = ("hopper", "walker2d", "halfcheetah", "cartpole", "ant",
+          "humanoidrun", "humanoidstandup")
 
 
 def asset_path(name: str) -> str:

@@ -15,9 +15,10 @@ sources and the header, and bound with ``ctypes``.
 bad [N])`` out. A CPU tensor takes the plain version (``rollout_rewards``,
 the torch engine); a CUDA tensor launches the kernel or raises.
 
-Coverage: slide and hinge joints, plane–capsule and capsule–capsule pairs
-(hopper, walker2d, halfcheetah, cartpole). A model with a free joint or a
-sphere or box pair is refused with ``NotImplementedError``.
+Coverage: free, slide and hinge joints; plane–sphere, plane–capsule and
+capsule–capsule pairs (hopper, walker2d, halfcheetah, cartpole, ant,
+humanoidrun, humanoidstandup). A model with a ball joint or a sphere–box
+pair is refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ import torch
 from ..rollout.fused import rollout_rewards
 from ..sim import batched as BT
 from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
-from ..sim.system import (HINGE, PAIR_CAPSULE_CAPSULE, PAIR_PLANE_CAPSULE,
-                          SLIDE, System)
+from ..sim.system import (FREE, HINGE, PAIR_CAPSULE_CAPSULE,
+                          PAIR_PLANE_CAPSULE, PAIR_PLANE_SPHERE, SLIDE, System)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -50,24 +51,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches of the CUDA kernel, counted where the kernel is launched.
 LAUNCHES = 0
 
-REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2}
+REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2, "run": 3,
+              "standup": 4, "healthy": 5}
+# contact points per pair kind, in sim/batched.py::collide_b's order
+PAIR_ROWS = {PAIR_PLANE_SPHERE: 1, PAIR_PLANE_CAPSULE: 2,
+             PAIR_CAPSULE_CAPSULE: 1}
+# Above this many constraint-row entries (NC × NV) the kernel keeps its
+# per-row loops rolled (csrc/rollout.cu, kRowUnroll); rolling changes no
+# operation's order. The line is drawn by build time: unrolled, ant (574)
+# and humanoidrun (828) took 584 s and 502 s of nvcc on an H100 machine,
+# rolled 74 s and 332 s. Below it, the unrolled kernel ran faster on
+# walker2d, halfcheetah and cartpole, the rolled one on hopper (PERF.md).
+ROLL_ROWS_ABOVE = 300
 
 
 def check_supported(sys: System) -> None:
     """Raise NotImplementedError for what the kernel does not cover."""
     kinds = set(sys.jnt_type)
-    if not kinds <= {SLIDE, HINGE}:
+    if not kinds <= {FREE, SLIDE, HINGE}:
         raise NotImplementedError(
-            "the CUDA rollout kernel covers slide and hinge joints only "
-            f"(joint types {sorted(kinds)}); free joints are ROADMAP.md "
-            "Queue 2 K2")
+            "the CUDA rollout kernel covers free, slide and hinge joints "
+            f"only (joint types {sorted(kinds)}); ball joints are not on "
+            "ROADMAP.md's Queue 2")
     pair_kinds = {k for k, _, _ in sys.contact_pairs}
-    if not pair_kinds <= {PAIR_PLANE_CAPSULE, PAIR_CAPSULE_CAPSULE}:
+    if not pair_kinds <= set(PAIR_ROWS):
         raise NotImplementedError(
-            "the CUDA rollout kernel covers plane–capsule and "
-            "capsule–capsule pairs only (pair kinds "
-            f"{sorted(pair_kinds)}); sphere and box pairs are ROADMAP.md "
-            "Queue 2 K1/K2")
+            "the CUDA rollout kernel covers plane–sphere, plane–capsule "
+            "and capsule–capsule pairs only (pair kinds "
+            f"{sorted(pair_kinds)}); the sphere–box pair is ROADMAP.md "
+            "Queue 2 K1")
 
 
 # ---------------------------------------------------------------------------
@@ -124,8 +136,10 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
             j = tc.dof_parent[j]
     pairs = set(tc.dof_pairs)
 
-    limj = [j for j in range(nj) if sys.jnt_limited[j]]
-    springs = [j for j in range(nj) if stiff[j] != 0.0]
+    # limits and springs act on slide and hinge joints only (substep_b)
+    scalar = [j for j in range(nj) if sys.jnt_type[j] in (SLIDE, HINGE)]
+    limj = [j for j in scalar if sys.jnt_limited[j]]
+    springs = [j for j in scalar if stiff[j] != 0.0]
 
     pair_rows, con_sgn = [], []
     for kind, ga, gb in sys.contact_pairs:
@@ -135,8 +149,9 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
             sgn[i] += 1.0
         for i in tc.ancdof_body[sys.geom_bodyid[ga]]:
             sgn[i] -= 1.0
-        con_sgn += [sgn] * (2 if kind == PAIR_PLANE_CAPSULE else 1)
+        con_sgn += [sgn] * PAIR_ROWS[kind]
     ncon = len(con_sgn)
+    nc = ncon + 2 * len(limj)
 
     hs = sys.cached("height_sensors", lambda: BT.height_sensors(sys))
     sensors, floor_z = hs if hs is not None else ([], 0.0)
@@ -145,7 +160,7 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
     eps = float(sys.host("friction_vel_tol"))
     sizes = dict(NQ=sys.nq, NV=nv, NU=sys.nu, NB=sys.nbody, NJ=nj,
                  NFRAMES=n_frames, NPAIR=len(sys.contact_pairs), NCON=ncon,
-                 NLIMJ=len(limj), NC=ncon + 2 * len(limj),
+                 NLIMJ=len(limj), NC=nc,
                  NSPRING=len(springs), NSENSOR=len(sensors))
     scalars = dict(
         kH=h, kInvH=recip32(h),
@@ -157,9 +172,13 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
         kQdDiverged=BT.QD_DIVERGED, kZmin=floor_z - BT.ROOT_SINK_TOL,
         kZTarget=params.get("z_target", 0.0),
         kInvDt=params.get("inv_dt", 0.0),
+        kDt=params.get("dt", 1.0),
+        kZLow=params.get("z_low", 0.0), kZHigh=params.get("z_high", 0.0),
         kCtrlCost=params.get("ctrl_cost", 0.0))
-    ints = dict(kGsPasses=N_GS_PASSES, kHinge=HINGE,
+    ints = dict(kGsPasses=N_GS_PASSES, kFree=FREE, kHinge=HINGE,
+                kPlaneSphere=PAIR_PLANE_SPHERE,
                 kPlaneCapsule=PAIR_PLANE_CAPSULE,
+                kRowUnroll=1 if nc * nv > ROLL_ROWS_ABOVE else max(nc, 1),
                 kReward=REWARD_IDS[name],
                 **{f"kReward{k.capitalize()}": v
                    for k, v in REWARD_IDS.items()})

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where one hopper plan's device time goes, by ``torch.profiler``.
+"""Where one plan's device time goes, by ``torch.profiler``.
 
-    python3 profile_plan.py [--seed 0]
+    python3 profile_plan.py [--env hopper] [--seed 0]
 
-Runs ``mbd.plan`` on hopper at ``recommended_config("hopper")``
-(2048 / 50 / 100) twice on the first CUDA card: once to build the kernel
-and warm up, once under ``torch.profiler``. Prints the card's name and
+Runs ``mbd.plan`` on the env at its ``recommended_config`` (hopper:
+2048 / 50 / 100; humanoidrun: 8192 / 50 / 300) twice on the first CUDA
+card: once to build the kernel and warm up, once under
+``torch.profiler``. Prints the card's name and
 power limit, the traced plan's wall time, the union of the device's
 kernel intervals over that wall time (its busy share) and the device time
 of the busiest kernels.
@@ -28,6 +29,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--env", default="hopper")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args()
@@ -42,8 +44,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    env = envs.get_env("hopper", device="cuda")
-    cfg = mbd.recommended_config("hopper")
+    env = envs.get_env(args.env, device="cuda")
+    cfg = mbd.recommended_config(args.env)
 
     def run():
         gen = torch.Generator("cuda").manual_seed(args.seed)
@@ -79,7 +81,7 @@ def main() -> int:
         per_name[e.name][0] += 1
         per_name[e.name][1] += e.time_range.elapsed_us()
 
-    print(f"traced plan on {gpu}: wall {wall:.6f} s, final_reward "
+    print(f"traced {args.env} plan on {gpu}: wall {wall:.6f} s, final_reward "
           f"{final:.6f}, device busy {busy / 1e6:.6f} s, busy share "
           f"{busy / 1e6 / wall:.6f}")
     for name, (count, us) in sorted(per_name.items(),

@@ -37,7 +37,9 @@ def card():
 @pytest.mark.parametrize("name,N,per_sample", [
     ("hopper", 256, False), ("walker2d", 256, False),
     ("halfcheetah", 256, False), ("cartpole", 256, False),
-    ("hopper", 257, False), ("walker2d", 64, True)])
+    ("hopper", 257, False), ("walker2d", 64, True), ("ant", 256, False),
+    ("humanoidrun", 256, False), ("humanoidstandup", 256, False),
+    ("humanoidrun", 64, True)])
 def test_kernel_matches_plain_version(card, name, N, per_sample):
     env = envs.get_env(name, device=card)
     gen = torch.Generator(card).manual_seed(0)

@@ -76,13 +76,9 @@ def test_reverse_step_matches_jax():
     assert abs(float(jrew) - float(trew)) <= 1e-5
 
 
-def test_plan_matches_jax_hopper():
-    """The slice as a whole: hopper at Nsample=16, Hsample=10, Ndiffuse=6
-    from JAX's reset state and JAX's noise stream. rews_trace and
-    final_reward to atol 5e-3, the tolerance tests/test_fused_planner.py
-    :20-21 states for the same chaos (measured 1.4e-7)."""
-    name = "hopper"
-    cfg = dict(Nsample=16, Hsample=10, Ndiffuse=6)
+def _plan_matches_jax(name, cfg):
+    """Plan ``name`` in both packages from JAX's reset state and JAX's
+    noise stream; returns (JAX result, port result, progress calls)."""
     jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
     jres = jax_mbd.plan(jenv, jax_mbd.MBDConfig(**cfg),
                         jax.random.PRNGKey(0), engine="fused")
@@ -107,8 +103,40 @@ def test_plan_matches_jax_hopper():
                                tres.rews_trace.numpy(), rtol=0, atol=5e-3)
     assert abs(float(jres.final_reward) - float(tres.final_reward)) <= 5e-3
     assert tres.final_diverged == bool(jres.final_diverged)
+    return jres, tres, progress
+
+
+def test_plan_matches_jax_hopper():
+    """The slice as a whole: hopper at Nsample=16, Hsample=10, Ndiffuse=6
+    from JAX's reset state and JAX's noise stream. rews_trace and
+    final_reward to atol 5e-3, the tolerance tests/test_fused_planner.py
+    :20-21 states for the same chaos (measured 1.4e-7)."""
+    _, tres, progress = _plan_matches_jax(
+        "hopper", dict(Nsample=16, Hsample=10, Ndiffuse=6))
     assert [p[0] for p in progress] == [2, 4, 5]
     assert progress[-1][1] == pytest.approx(float(tres.rews_trace[-1]))
+
+
+def test_plan_matches_jax_ant():
+    """A free-root model through the same slice: ant at Nsample=16,
+    Hsample=10, Ndiffuse=6, to the same atol 5e-3."""
+    _plan_matches_jax("ant", dict(Nsample=16, Hsample=10, Ndiffuse=6))
+
+
+def test_plan_humanoidrun_on_cpu():
+    """The flagship model's plan at a tiny size on the CPU (JAX cannot
+    compile a humanoid engine here in reasonable time, so this one is
+    torch only): shapes, finite outputs, and a clean final plan."""
+    env = envs.get_env("humanoidrun")
+    cfg = mbd.MBDConfig(Nsample=8, Hsample=3, Ndiffuse=3,
+                        temp_sample=mbd.TEMP_RECOMMEND["humanoidrun"])
+    res = mbd.plan(env, cfg, torch.Generator().manual_seed(0))
+    assert res.Ybars.shape == (2, 3, env.action_size)
+    assert res.rews_trace.shape == (2,)
+    assert torch.isfinite(res.Ybars).all()
+    assert torch.isfinite(res.rews_trace).all()
+    assert torch.isfinite(res.final_reward)
+    assert res.final_diverged is False
 
 
 def test_plan_draws_from_generator_and_refuses_demo():

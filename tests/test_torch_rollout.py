@@ -9,10 +9,11 @@ Tolerances:
 * the first env step's rewards to atol 1e-5, the one of
   tests/test_rollout_pallas.py:24 (measured at most 4.5e-7);
 * the validity flags equal;
-* hopper and cartpole: every step's reward to atol 1e-4. XLA
+* hopper, cartpole and ant: every step's reward to atol 1e-4. XLA
   reassociates float32 inside the jitted JAX rollout, and the largest
   per-step gap over seeds 1 to 3 (ragged and per-sample cases included)
-  was 4.8e-5 on hopper and 1.2e-7 on cartpole;
+  was 4.8e-5 on hopper and 1.2e-7 on cartpole; ant's was 8.3e-7 at
+  seed 1, its feet's contacts not switching within the ten steps;
 * walker2d and halfcheetah: each sample's mean reward over the horizon to
   atol 5e-3, the tolerance tests/test_fused_planner.py:20-21 states for
   the same chaos. A jitted and an eager JAX walker2d substep already
@@ -22,7 +23,10 @@ Tolerances:
   over seeds 1 to 3.
 
 The engine's arithmetic itself is held at 1e-5 per substep in
-tests/test_torch_engine.py.
+tests/test_torch_engine.py. The humanoids' rollouts are not compiled by
+JAX here (an XLA-CPU compile of a humanoid engine takes over 20
+minutes); their rewards are held against JAX's ``reward_qs_b`` on the same
+trajectories, at 1e-6.
 
 The kernel itself (csrc/rollout.cu) is built with ``--fmad=false``: every
 multiply and add then rounds on its own, as in the plain version's
@@ -89,7 +93,7 @@ def _compare(name, N, H, per_sample=False):
 
 
 @pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
-                                  "cartpole"])
+                                  "cartpole", "ant"])
 def test_rollout_rewards_match_jax(name):
     _compare(name, N=8, H=10)
 
@@ -140,19 +144,45 @@ def test_model_header_hopper():
     assert "constexpr float kH = 2.000000095e-03f;" in header   # f32 dt
 
 
+# Constraint rows: one per plane–sphere pair, two per plane–capsule pair
+# (the capsule's two end caps), then two per limited joint. ant: 1 + 12·2
+# + 8·2; humanoidrun: 2 + 17·2; humanoidstandup: 3 + 6·2 + 17·2.
 @pytest.mark.parametrize("name,nc", [("walker2d", 26), ("halfcheetah", 28),
-                                     ("cartpole", 2)])
+                                     ("cartpole", 2), ("ant", 41),
+                                     ("humanoidrun", 36),
+                                     ("humanoidstandup", 49)])
 def test_model_header_sizes(name, nc):
     env = envs.get_env(name)
     assert f"#define NC {nc}\n" in rollout_cuda.model_header(env)
 
 
-@pytest.mark.parametrize("scene", ["ant", "pushT"])
-def test_kernel_refuses_free_joints_and_sphere_box(scene):
-    from mbd_tpu.envs.physics import asset_path
-    from mbd_tpu_torch.sim.system import load_mjcf
+@pytest.mark.parametrize("name,ncon,reward", [
+    ("ant", 25, "healthy"), ("humanoidrun", 2, "run"),
+    ("humanoidstandup", 15, "standup")])
+def test_kernel_accepts_free_roots_and_plane_sphere(name, ncon, reward):
+    """Free roots and plane–sphere pairs are in the kernel: the header
+    carries the contact rows, the free root's height sensor, the env's
+    reward branch and, at these sizes, rolled per-row loops."""
+    env = envs.get_env(name)
+    rollout_cuda.check_supported(env.sys)
+    t = rollout_cuda.model_tables(env.sys, env.n_frames, env.kernel_reward)
+    assert t["sizes"]["NCON"] == ncon and t["sizes"]["NSENSOR"] == 1
+    assert t["ints"]["kReward"] == rollout_cuda.REWARD_IDS[reward]
+    assert t["ints"]["kRowUnroll"] == 1
+    assert ("sensor_qadr", "int", [2]) in t["tables"]   # root z = q[2]
 
-    sys = load_mjcf(asset_path(f"{scene}.xml"))
+
+@pytest.mark.parametrize("scene", ["ball", "pushT"])
+def test_kernel_refuses_free_joints_and_sphere_box(scene):
+    """What the kernel does not cover is refused: a ball joint (on ant's
+    root) and pushT's sphere–box pair."""
+    from mbd_tpu.envs.physics import asset_path
+    from mbd_tpu_torch.sim.system import BALL, load_mjcf
+
+    sys = load_mjcf(asset_path("ant.xml" if scene == "ball"
+                               else f"{scene}.xml"))
+    if scene == "ball":
+        sys = sys.replace(jnt_type=(BALL,) + sys.jnt_type[1:])
     env = SimpleNamespace(sys=sys, n_frames=5, kernel_reward=("progress", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rollout_cuda.model_header(env)
@@ -161,3 +191,24 @@ def test_kernel_refuses_free_joints_and_sphere_box(scene):
         rollout_cuda.rollout_rewards_cuda(env, state,
                                           torch.zeros(2, 3, sys.nu))
 
+
+
+@pytest.mark.parametrize("name", ["ant", "humanoidrun", "humanoidstandup"])
+def test_reward_qs_b_matches_jax(name):
+    """Each free-root env's batch-last reward against JAX's on the same
+    random trajectories (qs, qds, us, q0), at 1e-6."""
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    sys = tenv.sys
+    H, N = 6, 16
+    rng = np.random.default_rng(7)
+    qs = (np.asarray(sys.init_q)[None, :, None]
+          + rng.normal(size=(H, sys.nq, N)) * 0.5).astype(np.float32)
+    qds = rng.normal(size=(H, sys.nv, N)).astype(np.float32)
+    us = rng.uniform(-1, 1, (H, sys.nu, N)).astype(np.float32)
+    q0 = (np.asarray(sys.init_q)[:, None]
+          + rng.normal(size=(sys.nq, N)) * 0.5).astype(np.float32)
+    qd0 = rng.normal(size=(sys.nv, N)).astype(np.float32)
+    r_j = np.asarray(jenv.reward_qs_b(qs, qds, us, q0, qd0))
+    r_t = tenv.reward_qs_b(*map(torch.from_numpy, (qs, qds, us, q0, qd0)))
+    assert r_t.shape == (H, N)
+    np.testing.assert_allclose(r_j, r_t.numpy(), rtol=0, atol=1e-6)
