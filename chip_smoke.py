@@ -7,28 +7,41 @@ Phases, each of which raises on failure (exit code 1):
 
 1. the card's name and power limit; the rollout kernel
    (``csrc/rollout.cu``) starts to build for every model it serves, one
-   nvcc each, all at once in the background (the humanoids' builds took
-   216–333 s each on an H100 host's 8 cores, the others' under 60 s);
-2. while they build, the plain version (the torch engine) runs the inputs
-   of every comparison on the card: all seven models at N = 2048, H = 4;
-   hopper at a ragged N = 2047, walker2d with per-sample initial states;
-   humanoidrun at a ragged N = 8191 and with per-sample initial states;
-   hopper and humanoidrun at their paths' own shapes, N = 2048, H = 50
-   and N = 8192, H = 50, both timed;
-3. as each build ends, the kernel against those plain runs (rewards to
-   atol 1e-5, validity flags equal) and its own time by CUDA events;
-4. the hopper path: ``envs.get_env("hopper", device="cuda")`` →
-   ``mbd.plan`` at ``recommended_config("hopper")`` (2048 / 50 / 100),
-   seed 0, through the kernel only, to a clean final reward of at least
-   1.8, the final plan rolled out again by the plain version;
-5. a short plan (Nsample 256, H 10, Ndiffuse 5) on each other served
-   model but humanoidrun, through the kernel only, with finite outputs;
-6. the humanoidrun path: ``mbd.plan`` at
-   ``recommended_config("humanoidrun")`` (8192 / 50 / 300), seed 0: at
-   least 299 kernel launches, no plain-engine call on the card, a clean
-   final reward of at least 1.0, and the final plan confirmed by the plain
-   version;
-7. one JSON line with the kernels' numbers, then the device line.
+   nvcc each, all at once in the background (6–41 s each on an H100
+   host's 8 cores);
+2. while they build, the operations per sample and env step of the plain
+   version (the torch engine), counted on the CPU for each kernel's bound,
+   then the plain version on the card on the inputs of every comparison
+   but the paths' own: all eight models at N = 2048, H = 4; hopper at a
+   ragged N = 2047 and with the position trace (``need_qs``); walker2d
+   with per-sample initial states; humanoidrun at a ragged N = 8191 and
+   with per-sample initial states; humanoidtrack at a ragged N = 2047 with
+   the trace and the demo log-density (``demo``), and with per-sample
+   initial states and the demo;
+3. as each build ends, the kernel against those plain runs (rewards,
+   traces and log-densities to atol 1e-5, validity flags equal), its own
+   time by CUDA events and its bound, then that model's path. After a
+   path's plan, the kernel is held against the plain version at the
+   path's own shape, timed, from the plan's initial state, with the final
+   plan as sample 0: so the plain version also rolls the final plan out
+   again, to the plan's reward (and demo log-density) within 1e-5:
+   - hopper: ``envs.get_env("hopper", device="cuda")`` → ``mbd.plan`` at
+     ``recommended_config("hopper")`` (2048 / 50 / 100), seed 0, to a
+     clean final reward of at least 1.8, compared at N = 2048, H = 50;
+   - humanoidrun: ``recommended_config("humanoidrun")`` (8192 / 50 / 300),
+     seed 0: at least 299 kernel launches, a clean final reward of at
+     least 1.0, compared at N = 8192, H = 50;
+   - humanoidtrack: ``recommended_config("humanoidtrack",
+     MBDConfig(enable_demo=True))`` (2048 / 50 / 100), seed 0: at least 99
+     launches with the demo, a clean final plan whose demo log-density,
+     from the kernel's demo mode, is at least −0.70 and beats by 0.05 or
+     more that of the same seed's plan without the demo, compared at
+     N = 2048, H = 50 with the demo; before it, a short demo plan on
+     humanoidtrack_walk and the plan without the demo;
+   - every other model: a short plan (Nsample 256, H 10, Ndiffuse 5);
+   no path calls the plain engine on the card, and each ends with finite
+   outputs of the expected shapes;
+4. one JSON line with the kernels' numbers, then the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -38,22 +51,24 @@ non-zero code and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# every model the kernel serves; the humanoids' builds are the longest
-ENVS = ("humanoidrun", "humanoidstandup", "ant", "walker2d", "halfcheetah",
-        "hopper", "cartpole")
+# every model the kernel serves, the longest builds first
+ENVS = ("humanoidtrack", "humanoidrun", "humanoidstandup", "ant", "walker2d",
+        "halfcheetah", "hopper", "cartpole")
 N_CHECK, H_CHECK = 2048, 4
 # Kernel against plain version: the CPU tests' tolerance for rollout
-# rewards (tests/test_torch_rollout.py); the validity flags must be equal.
+# rewards (tests/test_torch_rollout.py), also for the position trace and
+# the demo log-density; the validity flags must be equal.
 ATOL = 1e-5
 # The hopper path must reach the JAX 8-seed hopper mean minus 3σ
 # (docs/RESULTS.json: 2.41 ± 0.19, so 2.41 − 3·0.19 ≈ 1.8).
@@ -63,7 +78,33 @@ MIN_HOPPER_REWARD = 1.8
 # zero controls score −0.598 at seed 0 (the torch engine, 50 steps on the
 # CPU) and the rollout is flagged: the humanoid falls.
 MIN_HUMANOIDRUN_REWARD = 1.0
+# The humanoidtrack path must show that the demo steers: every JAX seed
+# with the demo tracked at −0.661 or above, 5 of the 8 seeds without it
+# below −0.70 (docs/RESULTS.json); zero controls track at −0.768, with a
+# reward of −2.279 and a flagged rollout (tests/test_torch_demo.py).
+MIN_HUMANOIDTRACK_LOGPD = -0.70
+# ... and track better than the same seed's plan without the demo, by half
+# the spread of JAX's 8 seeds without it (σ 0.10; docs/RESULTS.json).
+MIN_DEMO_GAIN = 0.05
 SHORT_PLAN = dict(Nsample=256, Hsample=10, Ndiffuse=5)
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, and
+# device memory
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# aten ops that move or make data and compute nothing; every other op is
+# counted at one operation per output element (per input element for a
+# reduction)
+MOVES = {
+    "view", "_unsafe_view", "_reshape_alias", "reshape", "expand", "permute",
+    "transpose", "t", "select", "slice", "unsqueeze", "squeeze", "cat",
+    "stack", "clone", "copy_", "_to_copy", "contiguous", "empty",
+    "empty_like", "empty_strided", "zeros", "zeros_like", "ones",
+    "ones_like", "full", "full_like", "new_zeros", "new_ones", "new_full",
+    "new_empty", "lift_fresh", "lift_fresh_copy", "detach", "alias",
+    "as_strided", "split", "split_with_sizes", "unbind", "index",
+    "index_select", "_local_scalar_dense", "scalar_tensor", "fill_", "zero_",
+    "arange", "repeat"}
+REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "argmin",
+              "argmax", "linalg_vector_norm", "prod"}
 
 
 def card() -> str:
@@ -93,15 +134,57 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-class Case:
-    """One comparison: inputs, and the plain version's output and time."""
+def ops_per_sample_step(torch, envs, name, demo) -> int:
+    """Operations of the plain version for one sample and one env step
+    (n_frames substeps, the reward and, with ``demo``, the demo score),
+    counted by a dispatch mode over a rollout at N = 1, H = 1 on the CPU:
+    one per output element of each computing aten op, one per input
+    element of a reduction, a sine or a square root as one. The position
+    trace adds no operation, only bytes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
-    def __init__(self, torch, envs, name, N, H, gen, per_sample=False):
-        from mbd_tpu_torch.rollout.fused import rollout_rewards
+    from mbd_tpu_torch.rollout.fused import rollout_outputs
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            op = func.overloadpacket.__name__
+            if op in REDUCTIONS:
+                self.ops += args[0].numel()
+            elif op not in MOVES:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                self.ops += sum(o.numel() for o in outs
+                                if isinstance(o, torch.Tensor))
+            return out
+
+    env = envs.get_env(name, device="cpu")
+    state0 = env.reset(torch.Generator().manual_seed(0))
+    with Count() as count:
+        rollout_outputs(env, state0, torch.zeros((1, 1, env.action_size)),
+                        demo=demo)
+    return count.ops
+
+
+class Case:
+    """One comparison: inputs, and the plain version's outputs and time."""
+
+    def __init__(self, torch, envs, name, N, H, gen, per_sample=False,
+                 need_qs=False, demo=False, timed=False, path=None):
+        """``path``: (env, initial state, final plan [H, nu]) of a plan
+        just driven; the comparison then starts from the plan's initial
+        state, with the final plan as sample 0."""
+        from mbd_tpu_torch.rollout.fused import rollout_outputs
 
         self.name, self.N, self.H, self.per_sample = name, N, H, per_sample
-        self.env = env = envs.get_env(name, device="cuda")
-        state0 = env.reset(gen)
+        self.need_qs, self.demo, self.timed = need_qs, demo, timed
+        if path is not None:
+            env, state0, plan = path
+        else:
+            env = envs.get_env(name, device="cuda")
+            state0 = env.reset(gen)
+        self.env = env
         if per_sample:
             ps = state0.pipeline_state
             noise = 0.01 * torch.randn((env.sys.nq, N), generator=gen,
@@ -112,45 +195,81 @@ class Case:
         self.state0 = state0
         self.Y0s = 2.0 * torch.rand((N, H, env.action_size), generator=gen,
                                     device="cuda") - 1.0
-        self.plain_ms, (self.r_p, _, self.b_p) = time_ms(
-            torch, lambda: rollout_rewards(env, state0, self.Y0s), 1)
+        if path is not None:
+            self.Y0s[0] = plan
+        self.plain_ms, self.plain = time_ms(
+            torch, lambda: rollout_outputs(env, state0, self.Y0s, need_qs,
+                                           demo), 1)
+
+    def modes(self):
+        return ["base"] + ["need_qs"] * self.need_qs + ["demo"] * self.demo
 
     def label(self):
-        return (f"{self.name} N={self.N} H={self.H} "
-                f"per_sample={self.per_sample}")
+        return (f"{self.name} N={self.N} H={self.H} per_sample="
+                f"{self.per_sample} modes={'+'.join(self.modes())}")
 
-    def check(self, torch, rc, reps=3):
-        """The kernel on the same inputs: max |Δrews| and its ms."""
-        r_k, b_k = rc.rollout_rewards_cuda(self.env, self.state0, self.Y0s)
+    def bytes(self):
+        """What the kernel must move: U, the initial state and the demo
+        frames read once, every output written once."""
+        sys, N, H = self.env.sys, self.N, self.H
+        floats = N * H * sys.nu + (sys.nq + sys.nv) * (N if self.per_sample
+                                                       else 1)
+        floats += N * H + N                                # rews, bad
+        floats += H * sys.nq * N if self.need_qs else 0
+        floats += H * self.env.xref.shape[0] * 3 + N if self.demo else 0
+        return 4 * floats
+
+    def bound(self, ops_per_step):
+        """The least time the card could take: the larger of the plain
+        version's operations (``ops_per_step`` per sample and env step)
+        over the FP32 peak and the bytes over the memory rate; (ms, which
+        of the two)."""
+        t_ops = ops_per_step * self.N * self.H / PEAK_FLOPS * 1e3
+        t_bytes = self.bytes() / PEAK_BYTES * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    def check(self, torch, rc, ops_per_step, reps=3):
+        """The kernel on the same inputs: max |Δ| over its outputs, its
+        ms, and its bound."""
+        out = rc.rollout_rewards_cuda(self.env, self.state0, self.Y0s,
+                                      self.need_qs, self.demo)
         torch.cuda.synchronize()
-        if r_k.shape != (self.N, self.H) or b_k.shape != (self.N,):
+        shapes = [tuple(t.shape) for t in out]
+        if shapes != [tuple(t.shape) for t in self.plain]:
             raise AssertionError(f"{self.label()}: kernel output shapes "
-                                 f"{tuple(r_k.shape)}, {tuple(b_k.shape)}")
-        if not bool(torch.isfinite(r_k).all()):
-            raise AssertionError(f"{self.label()}: kernel rewards are not "
+                                 f"{shapes}")
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError(f"{self.label()}: kernel outputs are not "
                                  "finite")
-        err = float((r_k - self.r_p).abs().max())
-        flags = bool(torch.equal(b_k, self.b_p))
+        flags = bool(torch.equal(out[1], self.plain[1]))
+        names = ["rews"] + ["qs"] * self.need_qs + ["logpd"] * self.demo
+        errs = {k: float((a - b).abs().max()) for k, a, b in zip(
+            names, out[:1] + out[2:], self.plain[:1] + self.plain[2:])}
+        err = max(errs.values())
         if not err <= ATOL or not flags:
             raise AssertionError(f"{self.label()}: kernel and plain version "
-                                 f"differ (max|Δrews| {err} > {ATOL} or "
-                                 f"flags equal {flags})")
+                                 f"differ (max|Δ| {errs} > {ATOL} or flags "
+                                 f"equal {flags})")
         ms, _ = time_ms(torch, lambda: rc.rollout_rewards_cuda(
-            self.env, self.state0, self.Y0s), reps)
-        print(f"check {self.label()}: max|Δrews| {err:.3g} (atol {ATOL:g}), "
-              f"flags equal, {int(b_k.sum())} flagged; kernel {ms:.3f} ms, "
-              f"plain {self.plain_ms:.1f} ms", flush=True)
-        return err, ms
+            self.env, self.state0, self.Y0s, self.need_qs, self.demo), reps)
+        bound_ms, bound_by = self.bound(ops_per_step)
+        shown = ", ".join(f"max|Δ{k}| {v:.3g}" for k, v in errs.items())
+        print(f"check {self.label()}: {shown} (atol {ATOL:g}), flags equal, "
+              f"{int(out[1].sum())} flagged; kernel {ms:.3f} ms, plain "
+              f"{self.plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        return err, ms, bound_ms, bound_by
 
 
 def drive_plan(torch, envs, rc, fused, mbd, name, cfg, gpu):
     """Plan ``name`` at ``cfg`` from seed 0 with the counts set to 0 just
-    before and read just after; returns (result, state_init, launches,
-    plain calls, wall seconds)."""
+    before and read just after; returns (env, result, state_init,
+    launches, demo launches)."""
     env = envs.get_env(name, device="cuda")
     torch.cuda.synchronize()
     gen = torch.Generator("cuda").manual_seed(0)
-    rc.LAUNCHES = 0
+    rc.LAUNCHES = rc.DEMO_LAUNCHES = 0
     fused.CUDA_CALLS = 0
     t0 = time.perf_counter()
     state_init = env.reset(gen)       # what plan() itself draws first
@@ -158,13 +277,15 @@ def drive_plan(torch, envs, rc, fused, mbd, name, cfg, gpu):
     final_reward = float(res.final_reward)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain_calls = rc.LAUNCHES, fused.CUDA_CALLS
+    launches, demos = rc.LAUNCHES, rc.DEMO_LAUNCHES
+    plain_calls = fused.CUDA_CALLS
     steps = (cfg.Ndiffuse - 1) * cfg.Nsample * cfg.Hsample
-    print(f"plan {name} {cfg.Nsample}/{cfg.Hsample}/{cfg.Ndiffuse} seed 0: "
-          f"final_reward {final_reward:.4f}, final_diverged "
-          f"{res.final_diverged}, {launches} kernel launches, "
-          f"{plain_calls} plain-engine calls on CUDA; wall {wall:.2f} s, "
-          f"{steps / wall:.4g} env-steps/s on {gpu}", flush=True)
+    print(f"plan {name} {cfg.Nsample}/{cfg.Hsample}/{cfg.Ndiffuse} "
+          f"demo={cfg.enable_demo} seed 0: final_reward {final_reward:.4f}, "
+          f"final_diverged {res.final_diverged}, {launches} kernel launches "
+          f"({demos} with the demo), {plain_calls} plain-engine calls on "
+          f"CUDA; wall {wall:.2f} s, {steps / wall:.4g} env-steps/s on "
+          f"{gpu}", flush=True)
     T = cfg.Ndiffuse - 1
     if tuple(res.Ybars.shape) != (T, cfg.Hsample, env.action_size) or \
             tuple(res.rews_trace.shape) != (T,):
@@ -174,28 +295,58 @@ def drive_plan(torch, envs, rc, fused, mbd, name, cfg, gpu):
         raise AssertionError(f"{name}: plan outputs are not finite")
     if launches < T:
         raise AssertionError(f"{name}: {launches} kernel launches < {T}")
+    if cfg.enable_demo and demos < T:
+        raise AssertionError(f"{name}: {demos} demo launches < {T}")
     if plain_calls != 0:
         raise AssertionError(f"{name}: plain engine ran {plain_calls}× on "
                              "CUDA")
-    return env, res, state_init, launches, wall
+    return env, res, state_init, launches
 
 
-def confirm_final_plan(torch, fused, env, res, state_init, min_reward):
-    """A clean final plan of at least ``min_reward``, rolled out again by
-    the plain version to the same reward."""
+def final_logpd(rc, env, res, state_init) -> float:
+    """The demo log-density of a plan's final plan, from the kernel's demo
+    mode."""
+    _, _, logpd = rc.rollout_rewards_cuda(env, state_init, res.Ybars[-1:],
+                                          demo=True)
+    return float(logpd[0])
+
+
+def confirm_final_plan(torch, rc, env, res, state_init, case,
+                       min_reward=None, min_logpd=None, no_demo_logpd=None):
+    """A clean final plan of at least ``min_reward`` (and, for a demo, a
+    demo log-density of at least ``min_logpd`` from the kernel's demo
+    mode, and ``MIN_DEMO_GAIN`` above ``no_demo_logpd``, that of the plan
+    without the demo), rolled out again by the plain version to the same
+    numbers: it is sample 0 of ``case``, the path's own comparison."""
     final_reward = float(res.final_reward)
     if res.final_diverged:
         raise AssertionError("final plan diverged")
-    if not final_reward >= min_reward:
+    if min_reward is not None and not final_reward >= min_reward:
         raise AssertionError(f"final_reward {final_reward} < {min_reward}")
-    t0 = time.perf_counter()
-    plain_rews, _, plain_bad = fused.rollout_rewards(env, state_init,
-                                                     res.Ybars[-1:])
-    plain_final = float(plain_rews[0].mean())
-    print(f"final plan through the plain version: {plain_final:.6f} "
-          f"(kernel {final_reward:.6f}; {time.perf_counter() - t0:.1f} s)",
-          flush=True)
-    if bool(plain_bad[0]) or not abs(plain_final - final_reward) <= ATOL:
+    demo = min_logpd is not None
+    kernel = {"reward": final_reward}
+    if demo:
+        kernel["logpd"] = final_logpd(rc, env, res, state_init)
+        print(f"final plan's demo log-density {kernel['logpd']:.6f}, "
+              f"without the demo {no_demo_logpd:.6f}: a gain of "
+              f"{kernel['logpd'] - no_demo_logpd:.6f} (at least "
+              f"{MIN_DEMO_GAIN} required)", flush=True)
+        if not kernel["logpd"] >= min_logpd:
+            raise AssertionError(f"final plan's demo log-density "
+                                 f"{kernel['logpd']} < {min_logpd}")
+        if not kernel["logpd"] >= no_demo_logpd + MIN_DEMO_GAIN:
+            raise AssertionError("the demo does not steer: the plan without "
+                                 f"it tracks at {no_demo_logpd}")
+    out = case.plain
+    plain = {"reward": float(out[0][0].mean())}
+    if demo:
+        plain["logpd"] = float(out[-1][0])
+    shown = ", ".join(f"{k} {plain[k]:.6f} (kernel {kernel[k]:.6f})"
+                      for k in kernel)
+    print(f"final plan through the plain version (sample 0 of "
+          f"{case.label()}): {shown}", flush=True)
+    if bool(out[1][0]) or not all(abs(plain[k] - kernel[k]) <= ATOL
+                                  for k in kernel):
         raise AssertionError("the plain version disagrees on the final plan")
 
 
@@ -216,6 +367,10 @@ def main() -> int:
     from mbd_tpu_torch.rollout import fused
 
     t_start = time.perf_counter()
+
+    def elapsed():
+        return f"t = {time.perf_counter() - t_start:.0f} s"
+
     gpu = card()
     print(gpu)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -223,76 +378,130 @@ def main() -> int:
 
     # 1. every build at once, in the background (own env objects)
     pool = ThreadPoolExecutor(max_workers=len(ENVS))
-    builds = {name: pool.submit(rc.build, envs.get_env(name, device="cuda"))
+    builds = {pool.submit(rc.build, envs.get_env(name, device="cuda")): name
               for name in ENVS}
 
-    # 2. the plain version of every comparison, while they build
-    gen = torch.Generator("cuda").manual_seed(1)
-    shapes = [(name, N_CHECK, H_CHECK, False) for name in ENVS]
-    shapes += [("hopper", N_CHECK - 1, H_CHECK, False),
-               ("walker2d", N_CHECK, H_CHECK, True),
-               ("humanoidrun", 8191, H_CHECK, False),
-               ("humanoidrun", N_CHECK, H_CHECK, True),
-               ("hopper", 2048, 50, False),          # hopper's path
-               ("humanoidrun", 8192, 50, False)]     # humanoidrun's path
-    cases = []
-    for name, N, H, per_sample in shapes:
-        cases.append(Case(torch, envs, name, N, H, gen, per_sample))
-        print(f"plain {cases[-1].label()}: {cases[-1].plain_ms:.1f} ms "
-              f"(t = {time.perf_counter() - t_start:.0f} s)", flush=True)
+    # each path: its config, its floor, and its own shape, at which the
+    # kernel is held against the plain version after the plan
+    paths = {
+        "hopper": (mbd.recommended_config("hopper"),
+                   dict(min_reward=MIN_HOPPER_REWARD), dict(N=2048, H=50)),
+        "humanoidrun": (mbd.recommended_config("humanoidrun"),
+                        dict(min_reward=MIN_HUMANOIDRUN_REWARD),
+                        dict(N=8192, H=50)),
+        "humanoidtrack": (mbd.recommended_config(
+            "humanoidtrack", mbd.MBDConfig(enable_demo=True)),
+            dict(min_logpd=MIN_HUMANOIDTRACK_LOGPD),
+            dict(N=2048, H=50, demo=True))}
 
-    # 3.–5. as each build ends: its checks, then its path
-    stats = {name: dict(max_abs_err=0.0, launches=0) for name in ENVS}
-    timed = {name: (N_CHECK, H_CHECK) for name in ENVS}
-    timed.update(hopper=(2048, 50), humanoidrun=(8192, 50))
-    for name in reversed(ENVS):               # shortest builds first
-        built = builds[name].result()
+    # 2. the plain version of every other comparison, after the operation
+    # counts
+    gen = torch.Generator("cuda").manual_seed(1)
+    shapes = [dict(name=name, N=N_CHECK, H=H_CHECK, timed=name not in paths)
+              for name in ENVS]
+    shapes += [
+        dict(name="hopper", N=N_CHECK - 1, H=H_CHECK),
+        dict(name="hopper", N=N_CHECK, H=H_CHECK, need_qs=True),
+        dict(name="walker2d", N=N_CHECK, H=H_CHECK, per_sample=True),
+        dict(name="humanoidrun", N=8191, H=H_CHECK),
+        dict(name="humanoidrun", N=N_CHECK, H=H_CHECK, per_sample=True),
+        dict(name="humanoidtrack", N=N_CHECK - 1, H=H_CHECK, need_qs=True,
+             demo=True),
+        dict(name="humanoidtrack", N=N_CHECK, H=H_CHECK, per_sample=True,
+             demo=True)]
+    keys = {(spec["name"], spec.get("demo", False)) for spec in shapes}
+    keys |= {(name, shape.get("demo", False))
+             for name, (_, _, shape) in paths.items()}
+    ops = {}
+    for key in sorted(keys):
+        ops[key] = ops_per_sample_step(torch, envs, *key)
+        print(f"plain version {key[0]}: {ops[key]} operations per sample "
+              f"and env step{' with the demo' if key[1] else ''} "
+              f"({elapsed()})", flush=True)
+
+    def plain(**spec):
+        case = Case(torch, envs, gen=gen, **spec)
+        print(f"plain {case.label()}: {case.plain_ms:.1f} ms ({elapsed()})",
+              flush=True)
+        return case
+
+    cases = [plain(**spec) for spec in shapes]
+
+    # 3. as each build ends: its checks, then its path
+    stats = {name: dict(max_abs_err=0.0, launches=0, modes=set())
+             for name in ENVS}
+
+    def check(case):
+        st = stats[case.name]
+        err, ms, bound_ms, bound_by = case.check(
+            torch, rc, ops[case.name, case.demo])
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["modes"].update(case.modes())
+        if case.timed:
+            st.update(ms=ms, plain_ms=case.plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, shape=f"{case.N}x{case.H}",
+                      operations=ops[case.name, case.demo] * case.N * case.H,
+                      bytes=case.bytes())
+
+    for future in as_completed(builds):
+        name = builds[future]
+        built = future.result()
         a = built.attrs()
-        stats[name].update(nvcc_s=built.seconds, **a)
+        st = stats[name]
+        st.update(nvcc_s=built.seconds, **a)
         print(f"build {name}: nvcc {built.seconds:.1f} s; {a['regs']} "
               f"registers, {a['local_bytes']} B local per thread, "
               f"{a['blocks_per_sm']} blocks of {a['threads_per_block']} per "
-              f"SM; ptxas: {ptxas_summary(built.ptxas)} "
-              f"(t = {time.perf_counter() - t_start:.0f} s)", flush=True)
+              f"SM; ptxas: {ptxas_summary(built.ptxas)} ({elapsed()})",
+              flush=True)
         for case in cases:
-            if case.name != name:
-                continue
-            err, ms = case.check(torch, rc)
-            st = stats[name]
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            if (case.N, case.H) == timed[name] and not case.per_sample:
-                st.update(ms=ms, plain_ms=case.plain_ms)
-        if name == "hopper":
-            env, res, state_init, launches, _ = drive_plan(
-                torch, envs, rc, fused, mbd, name,
-                mbd.recommended_config(name), gpu)
-            confirm_final_plan(torch, fused, env, res, state_init,
-                               MIN_HOPPER_REWARD)
-            stats[name]["launches"] = launches
-        elif name != "humanoidrun":
+            if case.name == name:
+                check(case)
+        if name in paths:
+            cfg, floor, shape = paths[name]
+            if name == "humanoidtrack":
+                drive_plan(torch, envs, rc, fused, mbd, "humanoidtrack_walk",
+                           mbd.recommended_config(name, mbd.MBDConfig(
+                               enable_demo=True, **SHORT_PLAN)), gpu)
+                # the same seed without the demo, for the demo's gain
+                floor = dict(floor, no_demo_logpd=final_logpd(
+                    rc, *drive_plan(torch, envs, rc, fused, mbd, name,
+                                    dataclasses.replace(cfg,
+                                                        enable_demo=False),
+                                    gpu)[:3]))
+            env, res, state_init, st["launches"] = drive_plan(
+                torch, envs, rc, fused, mbd, name, cfg, gpu)
+            case = plain(name=name, timed=True,
+                         path=(env, state_init, res.Ybars[-1]), **shape)
+            check(case)
+            confirm_final_plan(torch, rc, env, res, state_init, case, **floor)
+        else:
             cfg = mbd.recommended_config(name, mbd.MBDConfig(**SHORT_PLAN))
-            _, _, _, launches, _ = drive_plan(torch, envs, rc, fused, mbd,
-                                              name, cfg, gpu)
-            stats[name]["launches"] = launches
+            _, _, _, st["launches"] = drive_plan(torch, envs, rc, fused, mbd,
+                                                 name, cfg, gpu)
     pool.shutdown()
+    print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
+          flush=True)
 
-    # 6. the humanoidrun path
-    env, res, state_init, launches, _ = drive_plan(
-        torch, envs, rc, fused, mbd, "humanoidrun",
-        mbd.recommended_config("humanoidrun"), gpu)
-    confirm_final_plan(torch, fused, env, res, state_init,
-                       MIN_HUMANOIDRUN_REWARD)
-    stats["humanoidrun"]["launches"] = launches
-    print(f"smoke: {time.perf_counter() - t_start:.0f} s", flush=True)
-
-    # 7. results
+    # 4. results
+    for name in ENVS:
+        st = stats[name]
+        print(f"bound {name} {st['shape']}: {st['operations']} operations, "
+              f"{st['bytes']} bytes → {st['bound_ms']:.4f} ms "
+              f"({st['bound_by']}); kernel {st['ms']:.3f} ms", flush=True)
+    order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",
         "source": "mbd_tpu_torch/csrc/rollout.cu",
         "replaces": "mbd_tpu/ops/rollout_pallas.py:151",
+        "modes": [m for m in order if m in stats[name]["modes"]],
         "launches": stats[name]["launches"],
         "max_abs_err": stats[name]["max_abs_err"],
-        "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+        "bound_ms": stats[name]["bound_ms"],
+        "bound_by": stats[name]["bound_by"],
+        # no single PyTorch call computes a rollout
+        "library_ms": None}
         for name in ENVS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

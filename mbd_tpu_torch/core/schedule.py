@@ -12,6 +12,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import DEFAULT, resolve
+
 
 @dataclass(frozen=True)
 class DiffusionSchedule:
@@ -35,7 +37,8 @@ def _linspace(start: float, stop: float, num: int,
 
 
 def make_schedule(num_steps: int, beta0: float = 1e-4, betaT: float = 1e-2,
-                  device="cpu") -> DiffusionSchedule:
+                  device=DEFAULT) -> DiffusionSchedule:
+    device = resolve(device)
     betas = _linspace(beta0, betaT, num_steps, device)
     alphas = 1.0 - betas
     alphas_bar = torch.cumprod(alphas, dim=0)

@@ -2,9 +2,12 @@
 // steps × NFRAMES physics substeps, with the env reward, in one launch.
 //
 // Replaces the TPU kernel mbd_tpu/ops/rollout_pallas.py::make_rollout_kernel
-// (the body `kernel`, launched by `rollout_fn` through pl.pallas_call), in
-// its base mode: per-step rewards rews[H, N] and the validity flag bad[N],
-// from a shared (q0[nq]) or per-sample (q0[nq, N]) initial state.
+// (the body `kernel`, launched by `rollout_fn` through pl.pallas_call):
+// per-step rewards rews[H, N] and the validity flag bad[N], from a shared
+// (q0[nq]) or per-sample (q0[nq, N]) initial state; with need_qs the
+// post-step position trace qs[H, nq, N]; with demo the demo-tracking
+// log-density logpd[N] against the env's demo frames xref, read at run
+// time so that every clip of a model shares one build.
 //
 // Design. One thread per sample. A thread keeps its q, qd and every
 // per-substep intermediate (link poses, spatial inertias, the tree-sparse
@@ -19,8 +22,12 @@
 // --fmad=false so every multiply and add rounds as the torch version's
 // separate elementwise kernels do.
 //
-// Joints: free, hinge and slide. Pairs: plane–sphere, plane–capsule and
-// capsule–capsule. Rewards: one branch per env (kReward, model.h).
+// Joints: free, hinge and slide, in one tree or a forest of roots. Pairs:
+// plane–sphere, plane–capsule and capsule–capsule. Rewards: one branch per
+// env (kReward, model.h). The demo pass reruns the forward kinematics
+// without the motion subspaces (fk<false>) once per env step; the trace
+// and the score are epilogues of the serial per-thread program, not a
+// pass of their own.
 //
 // What bounds it on this card: latency and registers, not bytes. Per
 // substep a sample does a few thousand dependent float ops (tens of
@@ -32,15 +39,35 @@
 // Gauss–Seidel rows stay rolled loops: fully unrolled, NC tree solves over
 // NV dofs make a program that nvcc takes minutes to build, and the rows
 // are in local memory either way. Both are measured (PERF.md) and left
-// for later work.
+// for later work. The loops over the topology walk per-model lists (a
+// dof's ancestor chain, a body's joints, dofs and children; model.h), not
+// every index pair with a test: the code nvcc unrolls then grows with the
+// tree's edges, where the tests made the factor alone NV³ copies.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "model.h"
 
 namespace {
 
 constexpr int kThreads = 128;
+
+// fn(std::integral_constant<int, i>()) for i = Begin, Begin + Step, …
+// short of End, unrolled by the compiler's front end. Each index is a
+// constant expression, so a loop over one of the model's lists (model.h)
+// makes code for the list's entries only: nvcc's own unroller would first
+// copy the loop body for every index pair and only then drop the copies
+// that a test rules out, which made the humanoids' builds take minutes.
+template <int Begin, int End, int Step = 1, class Fn>
+__device__ __forceinline__ void static_for(Fn&& fn) {
+  if constexpr (Step > 0 ? Begin < End : Begin > End) {
+    fn(std::integral_constant<int, Begin>());
+    static_for<Begin + Step, End, Step>(fn);
+  }
+}
+#define IDX(c) decltype(c)::value
 
 __device__ __forceinline__ float tmax(float a, float b) {
   // NaN-propagating max (torch.maximum / clamp_min semantics)
@@ -134,37 +161,40 @@ __device__ __forceinline__ void crf(const float* v, const float* f,
 }
 
 // Solve (LᵀDL) x = x in place along the dof tree (sim/batched.py::ldl_solve
-// with structural zeros as 0).
+// with structural zeros as 0). anc(i, ·) walks i's dof-tree ancestors from
+// the parent up, the order of the torch engine's parent loop.
 __device__ __forceinline__ void ldl_solve(const float (&F)[NV][NV],
                                           float* x) {
-#pragma unroll
-  for (int i = NV - 1; i >= 0; --i) {
-#pragma unroll
-    for (int j = NV - 1; j >= 0; --j) {
-      if (dof_anc(i, j)) x[j] = x[j] - F[i][j] * x[i];
-    }
-  }
+  static_for<NV - 1, -1, -1>([&](auto I) {
+    constexpr int i = IDX(I);
+    static_for<0, n_anc(i)>([&](auto M) {
+      constexpr int j = anc(IDX(I), IDX(M));
+      x[j] = x[j] - F[IDX(I)][j] * x[IDX(I)];
+    });
+  });
 #pragma unroll
   for (int i = 0; i < NV; ++i) x[i] = x[i] / F[i][i];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-#pragma unroll
-    for (int j = NV - 1; j >= 0; --j) {
-      if (dof_anc(i, j)) x[i] = x[i] - F[i][j] * x[j];
-    }
-  }
+  static_for<0, NV>([&](auto I) {
+    constexpr int i = IDX(I);
+    static_for<0, n_anc(i)>([&](auto M) {
+      constexpr int j = anc(IDX(I), IDX(M));
+      x[IDX(I)] = x[IDX(I)] - F[IDX(I)][j] * x[j];
+    });
+  });
 }
 
-// One physics substep (sim/batched.py::substep_b), in place on q, qd.
-__device__ void substep(float* q, float* qd, const float* u) {
-  // ---- forward kinematics ----
-  float xpos[NB][3], xquat[NB][4], S[NV][6];
+// Forward kinematics (sim/batched.py::fk_b): every body's world position
+// and orientation and, with kMotion, every dof's motion subspace S
+// ([angular, linear] about the world origin). Bodies whose parent is the
+// world start from its identity pose, so a forest needs nothing more.
+template <bool kMotion>
+__device__ __forceinline__ void fk(const float* q, float (&xpos)[NB][3],
+                                   float (&xquat)[NB][4], float (*S)[6]) {
   xpos[0][0] = xpos[0][1] = xpos[0][2] = 0.0f;
   xquat[0][0] = 1.0f;
   xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
-#pragma unroll
-  for (int b = 1; b < NB; ++b) {
-    const int p = body_parent(b);
+  static_for<1, NB>([&](auto B) {
+    constexpr int b = IDX(B), p = body_parent(b);
     float c[3], pos[3], quat[4];
     const float bp[3] = {body_pos(b, 0), body_pos(b, 1), body_pos(b, 2)};
     const float bq[4] = {body_quat(b, 0), body_quat(b, 1), body_quat(b, 2),
@@ -173,11 +203,10 @@ __device__ void substep(float* q, float* qd, const float* u) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) pos[k] = xpos[p][k] + c[k];
     qmul(xquat[p], bq, quat);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (jnt_body(j) != b) continue;
-      const int qa = jnt_qadr(j), da = jnt_dadr(j);
-      if (jnt_type(j) == kFree) {
+    static_for<0, n_body_jnt(b)>([&](auto M) {
+      constexpr int j = body_jnt(IDX(B), IDX(M));
+      constexpr int qa = jnt_qadr(j), da = jnt_dadr(j);
+      if constexpr (jnt_type(j) == kFree) {
         // position and unit quaternion from q; 3 linear, then 3 angular
         // columns (the rotation's columns c_k, paired with pos × c_k)
 #pragma unroll
@@ -194,56 +223,69 @@ __device__ void substep(float* q, float* qd, const float* u) {
              2.0f * (y * z + w * x)},
             {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
              1.0f - 2.0f * (x * x + y * y)}};
+        if constexpr (kMotion) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+          for (int k = 0; k < 3; ++k) {
 #pragma unroll
-          for (int m = 0; m < 3; ++m) {
-            S[da + k][m] = 0.0f;
-            S[da + k][3 + m] = (m == k) ? 1.0f : 0.0f;
-            S[da + 3 + k][m] = col[k][m];
+            for (int m = 0; m < 3; ++m) {
+              S[da + k][m] = 0.0f;
+              S[da + k][3 + m] = (m == k) ? 1.0f : 0.0f;
+              S[da + 3 + k][m] = col[k][m];
+            }
+            cross3(pos, col[k], S[da + 3 + k] + 3);
           }
-          cross3(pos, col[k], S[da + 3 + k] + 3);
         }
-        continue;
+      } else {
+        const float ax[3] = {jnt_axis(j, 0), jnt_axis(j, 1), jnt_axis(j, 2)};
+        float axis_w[3];
+        qrot(quat, ax, axis_w);
+        if constexpr (jnt_type(j) == kHinge) {
+          const float jp[3] = {jnt_pos(j, 0), jnt_pos(j, 1), jnt_pos(j, 2)};
+          const float theta = q[qa] - init_q(qa);
+          float anchor[3], dq[4], nq[4];
+          qrot(quat, jp, c);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + c[k];
+          const float s = sinf(0.5f * theta);
+          dq[0] = cosf(0.5f * theta);
+          dq[1] = ax[0] * s;
+          dq[2] = ax[1] * s;
+          dq[3] = ax[2] * s;
+          qmul(quat, dq, nq);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) quat[k] = nq[k];
+          qrot(quat, jp, c);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - c[k];
+          if constexpr (kMotion) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) S[da][k] = axis_w[k];
+            cross3(anchor, axis_w, S[da] + 3);
+          }
+        } else {  // slide
+          const float d = q[qa] - init_q(qa);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) pos[k] = pos[k] + axis_w[k] * d;
+          if constexpr (kMotion) {
+            S[da][0] = S[da][1] = S[da][2] = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) S[da][3 + k] = axis_w[k];
+          }
+        }
       }
-      const float ax[3] = {jnt_axis(j, 0), jnt_axis(j, 1), jnt_axis(j, 2)};
-      float axis_w[3];
-      qrot(quat, ax, axis_w);
-      if (jnt_type(j) == kHinge) {
-        const float jp[3] = {jnt_pos(j, 0), jnt_pos(j, 1), jnt_pos(j, 2)};
-        const float theta = q[qa] - init_q(qa);
-        float anchor[3], dq[4], nq[4];
-        qrot(quat, jp, c);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + c[k];
-        const float s = sinf(0.5f * theta);
-        dq[0] = cosf(0.5f * theta);
-        dq[1] = ax[0] * s;
-        dq[2] = ax[1] * s;
-        dq[3] = ax[2] * s;
-        qmul(quat, dq, nq);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) quat[k] = nq[k];
-        qrot(quat, jp, c);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - c[k];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) S[da][k] = axis_w[k];
-        cross3(anchor, axis_w, S[da] + 3);
-      } else {  // slide
-        const float d = q[qa] - init_q(qa);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) pos[k] = pos[k] + axis_w[k] * d;
-        S[da][0] = S[da][1] = S[da][2] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) S[da][3 + k] = axis_w[k];
-      }
-    }
+    });
 #pragma unroll
     for (int k = 0; k < 3; ++k) xpos[b][k] = pos[k];
 #pragma unroll
     for (int k = 0; k < 4; ++k) xquat[b][k] = quat[k];
-  }
+  });
+}
+
+// One physics substep (sim/batched.py::substep_b), in place on q, qd.
+__device__ void substep(float* q, float* qd, const float* u) {
+  // ---- forward kinematics ----
+  float xpos[NB][3], xquat[NB][4], S[NV][6];
+  fk<true>(q, xpos, xquat, S);
 
   // ---- spatial inertias (own and composite) ----
   float Ib[NB][kIn], Ic[NB][kIn];
@@ -283,35 +325,32 @@ __device__ void substep(float* q, float* qd, const float* u) {
     for (int k = 0; k < 3; ++k) Ib[b][9 + k] = m * com[k];
     Ib[b][12] = m;
   }
-#pragma unroll
-  for (int b = NB - 1; b >= 1; --b) {
+  static_for<NB - 1, 0, -1>([&](auto B) {
+    constexpr int b = IDX(B);
 #pragma unroll
     for (int k = 0; k < kIn; ++k) Ic[b][k] = Ib[b][k];
+    static_for<0, n_child(b)>([&](auto M) {
+      constexpr int c = child(IDX(B), IDX(M));
 #pragma unroll
-    for (int c = 1; c < NB; ++c) {
-      if (c > b && body_parent(c) == b) {
-#pragma unroll
-        for (int k = 0; k < kIn; ++k) Ic[b][k] = Ic[b][k] + Ic[c][k];
-      }
-    }
-  }
+      for (int k = 0; k < kIn; ++k) Ic[IDX(B)][k] = Ic[IDX(B)][k] + Ic[c][k];
+    });
+  });
 
   // ---- mass matrix (CRBA) ----
   float F[NV][NV];  // lower triangle: M, then the LᵀDL factor in place
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
+  static_for<0, NV>([&](auto I) {
+    constexpr int i = IDX(I);
     float Fi[6];
     matvec6(Ic[dof_body(i)], S[i], Fi);
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      if (!m_pair(i, j)) continue;
+    static_for<0, n_mpair(i)>([&](auto M) {
+      constexpr int j = mpair(IDX(I), IDX(M));
       float acc = Fi[0] * S[j][0];
 #pragma unroll
       for (int k = 1; k < 6; ++k) acc = acc + Fi[k] * S[j][k];
-      F[i][j] = acc;
-    }
+      F[IDX(I)][j] = acc;
+    });
     F[i][i] = F[i][i] + armature(i);
-  }
+  });
 
   // ---- bias (RNEA) ----
   float W[NV][6], vb[NB][6], ab[NB][6];
@@ -322,59 +361,55 @@ __device__ void substep(float* q, float* qd, const float* u) {
   }
 #pragma unroll
   for (int k = 0; k < 6; ++k) vb[0][k] = 0.0f;
-#pragma unroll
-  for (int b = 1; b < NB; ++b) {
+  static_for<1, NB>([&](auto B) {
+    constexpr int b = IDX(B);
 #pragma unroll
     for (int k = 0; k < 6; ++k) vb[b][k] = vb[body_parent(b)][k];
+    static_for<0, n_own(b)>([&](auto M) {
+      constexpr int i = own(IDX(B), IDX(M));
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      if (dof_body(i) != b) continue;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) vb[b][k] = vb[b][k] + W[i][k];
-    }
-  }
+      for (int k = 0; k < 6; ++k) vb[IDX(B)][k] = vb[IDX(B)][k] + W[i][k];
+    });
+  });
   ab[0][0] = ab[0][1] = ab[0][2] = 0.0f;
   ab[0][3] = -gravity(0);
   ab[0][4] = -gravity(1);
   ab[0][5] = -gravity(2);
+  static_for<1, NB>([&](auto B) {
+    constexpr int b = IDX(B), p = body_parent(b);
 #pragma unroll
-  for (int b = 1; b < NB; ++b) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) ab[b][k] = ab[body_parent(b)][k];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      if (dof_body(i) != b) continue;
+    for (int k = 0; k < 6; ++k) ab[b][k] = ab[p][k];
+    static_for<0, n_own(b)>([&](auto M) {
+      constexpr int i = own(IDX(B), IDX(M));
       float vp[6], sd[6];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) vp[k] = vb[body_parent(b)][k];
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        if (!prev_same(i, j)) continue;
+      for (int k = 0; k < 6; ++k) vp[k] = vb[body_parent(IDX(B))][k];
+      static_for<0, n_prev(i)>([&](auto MM) {
+        constexpr int j = prev(own(IDX(B), IDX(M)), IDX(MM));
 #pragma unroll
         for (int k = 0; k < 6; ++k) vp[k] = vp[k] + W[j][k];
-      }
+      });
       crm(vp, W[i], sd);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) ab[b][k] = ab[b][k] + sd[k];
-    }
-  }
+      for (int k = 0; k < 6; ++k) ab[IDX(B)][k] = ab[IDX(B)][k] + sd[k];
+    });
+  });
   float fsub[NB][6];
-#pragma unroll
-  for (int b = NB - 1; b >= 1; --b) {
+  static_for<NB - 1, 0, -1>([&](auto B) {
+    constexpr int b = IDX(B);
     float Ia[6], Iv[6], cf[6];
     matvec6(Ib[b], ab[b], Ia);
     matvec6(Ib[b], vb[b], Iv);
     crf(vb[b], Iv, cf);
 #pragma unroll
     for (int k = 0; k < 6; ++k) fsub[b][k] = Ia[k] + cf[k];
+    static_for<0, n_child(b)>([&](auto M) {
+      constexpr int c = child(IDX(B), IDX(M));
 #pragma unroll
-    for (int c = 1; c < NB; ++c) {
-      if (c > b && body_parent(c) == b) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) fsub[b][k] = fsub[b][k] + fsub[c][k];
-      }
-    }
-  }
+      for (int k = 0; k < 6; ++k)
+        fsub[IDX(B)][k] = fsub[IDX(B)][k] + fsub[c][k];
+    });
+  });
   float rhs[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -403,21 +438,22 @@ __device__ void substep(float* q, float* qd, const float* u) {
 #pragma unroll
   for (int i = 0; i < NV; ++i) F[i][i] = F[i][i] + extra[i];
 
-  // ---- LᵀDL factor (leaf-most dofs first) ----
-#pragma unroll
-  for (int k = NV - 1; k >= 0; --k) {
+  // ---- LᵀDL factor (leaf-most dofs first; i over k's ancestors, then
+  // j = i and i's ancestors, each from the highest index down) ----
+  static_for<NV - 1, -1, -1>([&](auto K) {
+    constexpr int k = IDX(K);
     const float inv_d = 1.0f / F[k][k];
-#pragma unroll
-    for (int i = NV - 1; i >= 0; --i) {
-      if (!dof_anc(k, i)) continue;
+    static_for<0, n_anc(k)>([&](auto M) {
+      constexpr int k = IDX(K), i = anc(k, IDX(M));
       const float a = F[k][i] * inv_d;
-#pragma unroll
-      for (int j = NV - 1; j >= 0; --j) {
-        if (j == i || dof_anc(i, j)) F[i][j] = F[i][j] - a * F[k][j];
-      }
+      F[i][i] = F[i][i] - a * F[k][i];
+      static_for<0, n_anc(i)>([&](auto MM) {
+        constexpr int k = IDX(K), i = anc(k, IDX(M)), j = anc(i, IDX(MM));
+        F[i][j] = F[i][j] - a * F[k][j];
+      });
       F[k][i] = a;
-    }
-  }
+    });
+  });
 
   // ---- generalized forces: actuators, springs, bias, damping ----
   float qfrc[NV];
@@ -700,11 +736,37 @@ __device__ void substep(float* q, float* qd, const float* u) {
   }
 }
 
+#if NTRACK > 0
+// Demo tracking (rollout_pallas.py:132-141): one positions-only FK pass on
+// the post-step q, then per tracked body the squared distance to its demo
+// frame xref_t [NTRACK][3], summed left to right, and
+// acc += (clip(‖x − xref_t‖, 0, 0.5)/0.5)².
+__device__ void track_cost(const float* q, const float* xref_t, float& acc) {
+  float xpos[NB][3], xquat[NB][4];
+  fk<false>(q, xpos, xquat, nullptr);
+#pragma unroll
+  for (int i = 0; i < NTRACK; ++i) {
+    float d2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d = xpos[track_body(i)][c] - xref_t[3 * i + c];
+      d2 = d2 + d * d;
+    }
+    const float e = tmin(tmax(sqrtf(d2), 0.0f), 0.5f) / 0.5f;
+    acc = acc + e * e;
+  }
+}
+#endif
+
+// qs [H, NQ, N] (the post-step position trace) and logpd [N] (the demo
+// log-density, against xref [H_demo, NTRACK, 3]) are written only when
+// their pointers are not null.
 __global__ void __launch_bounds__(kThreads)
     rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                    int per_sample, const float* __restrict__ U,
                    float* __restrict__ rews, float* __restrict__ bad_out,
-                   int N, int H) {
+                   float* __restrict__ qs, const float* __restrict__ xref,
+                   float* __restrict__ logpd, int N, int H) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float q[NQ], qd[NV], u[NU];
@@ -712,12 +774,19 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < NQ; ++i) q[i] = per_sample ? q0[i * N + n] : q0[i];
 #pragma unroll
   for (int i = 0; i < NV; ++i) qd[i] = per_sample ? qd0[i * N + n] : qd0[i];
-  float bad = 0.0f;
+  float bad = 0.0f, acc = 0.0f;
 #pragma unroll 1
   for (int t = 0; t < H; ++t) {
 #pragma unroll
     for (int a = 0; a < NU; ++a) u[a] = U[(t * NU + a) * N + n];
     const float x_prev = q[0];
+    // the track reward reads the pre-step state (free root: torso x
+    // velocity qd[0], torso (y, z) = q[1], q[2])
+    float r_pre = 0.0f;
+    if (kReward == kRewardTrack) {
+      r_pre = 1.0f + (-fabsf(qd[0] - kVTarget) - fabsf(q[2] - kZTarget) -
+                      0.1f * fabsf(q[1]));
+    }
 #pragma unroll 1
     for (int f = 0; f < NFRAMES; ++f) {
       substep(q, qd, u);
@@ -736,7 +805,9 @@ __global__ void __launch_bounds__(kThreads)
         qd[i] = tmin(tmax(qd[i], -kQdDiverged), kQdDiverged);
     }
     float r;
-    if (kReward == kRewardProgress) {
+    if (kReward == kRewardTrack) {
+      r = r_pre;
+    } else if (kReward == kRewardProgress) {
       r = q[0] - 0.5f * tmin(tmax(fabsf(q[1] - kZTarget), -1.0f), 1.0f);
     } else if (kReward == kRewardVelocity) {
       float cost = u[0] * u[0];
@@ -760,21 +831,33 @@ __global__ void __launch_bounds__(kThreads)
       r = (q[0] - x_prev) / kDt + healthy - kCtrlCost * cost;
     }
     rews[t * N + n] = r;
+    if (qs != nullptr) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) qs[(t * NQ + i) * N + n] = q[i];
+    }
+#if NTRACK > 0
+    if (logpd != nullptr) track_cost(q, xref + t * NTRACK * 3, acc);
+#endif
   }
   bad_out[n] = bad;
+#if NTRACK > 0
+  if (logpd != nullptr) logpd[n] = -acc / static_cast<float>(NTRACK * H);
+#endif
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success). qs,
+// xref and logpd may be null (see rollout_kernel).
 int mbd_rollout(const float* q0, const float* qd0, int per_sample,
-                const float* U, float* rews, float* bad, int N, int H,
+                const float* U, float* rews, float* bad, float* qs,
+                const float* xref, float* logpd, int N, int H,
                 void* stream) {
   const dim3 grid((N + kThreads - 1) / kThreads), block(kThreads);
   rollout_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      q0, qd0, per_sample, U, rews, bad, N, H);
+      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 

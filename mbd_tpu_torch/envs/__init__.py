@@ -1,9 +1,10 @@
 """Environment registry (port of ``mbd_tpu/envs/__init__.py``)."""
 
+from ..device import DEFAULT
 from .base import Env, State  # noqa: F401
 
 
-def get_env(env_name: str, device="cpu"):
+def get_env(env_name: str, device=DEFAULT):
     if env_name == "hopper":
         from .hopper import Hopper
         return Hopper(device)
@@ -25,6 +26,10 @@ def get_env(env_name: str, device="cpu"):
     if env_name == "humanoidstandup":
         from .humanoidstandup import HumanoidStandup
         return HumanoidStandup(device)
+    if env_name in ("humanoidtrack", "humanoidtrack_walk"):
+        from .humanoidtrack import HumanoidTrack
+        return HumanoidTrack("walk" if env_name.endswith("_walk") else "jog",
+                             device)
     raise NotImplementedError(
         f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
         "(see ROADMAP.md, Queue 1 item 2)")

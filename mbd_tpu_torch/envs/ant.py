@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT
 from .base import State
 from .physics import PhysicsEnv, load
 
@@ -17,7 +18,7 @@ class Ant(PhysicsEnv):
     z_low, z_high = 0.2, 1.0    # healthy torso height band
     ctrl_cost = 0.5
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT):
         super().__init__(load("ant", device), n_frames=5)
 
     @property

@@ -8,6 +8,7 @@ import math
 
 import torch
 
+from ..device import DEFAULT
 from .base import State
 from .physics import PhysicsEnv, load
 
@@ -15,7 +16,7 @@ from .physics import PhysicsEnv, load
 class Cartpole(PhysicsEnv):
     kernel_reward = ("swingup", {})
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT):
         sys = load("cartpole", device)
         sys = sys.replace(dt=torch.tensor(0.005, dtype=torch.float32,
                                           device=sys.device))

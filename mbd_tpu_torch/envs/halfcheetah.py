@@ -7,13 +7,14 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT
 from ..sim.batched import recip32
 from .base import State
 from .physics import PhysicsEnv, load
 
 
 class Halfcheetah(PhysicsEnv):
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT):
         super().__init__(load("halfcheetah", device), n_frames=5)
 
     @property

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT
 from .base import State
 from .physics import PhysicsEnv, load
 
@@ -15,7 +16,7 @@ class Hopper(PhysicsEnv):
     z_target = 1.0          # torso height the reward centres on
     reset_noise = 5e-3
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT):
         super().__init__(load(self.model, device), n_frames=20)
 
     @property

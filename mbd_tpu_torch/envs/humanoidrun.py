@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT
 from .base import State
 from .physics import PhysicsEnv, load
 
@@ -16,7 +17,7 @@ class HumanoidRun(PhysicsEnv):
     z_target = 1.3          # torso height the reward centres on
     reset_noise = 0.01
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT):
         super().__init__(load(self.model, device), n_frames=7)
 
     @property

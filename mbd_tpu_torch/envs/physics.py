@@ -2,9 +2,10 @@
 ``mbd_tpu/envs/physics.py``). ``step`` runs the batch-last engine at N=1.
 
 The envs load their models from compiled snapshots
-(``mbd_tpu_torch/assets/<model>.npz``), so a machine without MuJoCo runs
-the port. The snapshots are MuJoCo's compile of the reference package's
-MJCF files; rewrite them after an MJCF change with
+(``mbd_tpu_torch/assets/<model>.npz``) and humanoidtrack its demo clips
+from copies beside them (``<clip>_xref.npz``), so a machine without MuJoCo
+runs the port. The snapshots are MuJoCo's compile of the reference
+package's MJCF files; rewrite them and the clips after a change with
 
     python -m mbd_tpu_torch.envs.physics
 """
@@ -14,8 +15,10 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from ..device import DEFAULT
 from ..sim import batched as BT
 from ..sim.system import System, load_mjcf, load_npz, save_npz
 from .base import Env, State
@@ -25,7 +28,7 @@ ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "mbd_tpu",
                          "assets")
 SNAPSHOT_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
 MODELS = ("hopper", "walker2d", "halfcheetah", "cartpole", "ant",
-          "humanoidrun", "humanoidstandup")
+          "humanoidrun", "humanoidstandup", "humanoidtrack")
 
 
 def asset_path(name: str) -> str:
@@ -113,16 +116,23 @@ def snapshot_path(model: str) -> str:
     return os.path.join(SNAPSHOT_DIR, f"{model}.npz")
 
 
-def load(model: str, device) -> System:
+def load(model: str, device=DEFAULT) -> System:
     """The compiled model ``model`` (an MJCF name without ``.xml``)."""
     return load_npz(snapshot_path(model), device=device)
 
 
 def write_snapshots() -> None:
-    """Compile every served model's MJCF with MuJoCo and save it."""
+    """Compile every served model's MJCF with MuJoCo and save it, and copy
+    the tracked bodies' positions out of each demo clip."""
+    from .humanoidtrack import CLIPS, TRACK_BODIES, clip_path
+
     os.makedirs(SNAPSHOT_DIR, exist_ok=True)
     for model in MODELS:
-        save_npz(load_mjcf(asset_path(f"{model}.xml")), snapshot_path(model))
+        save_npz(load_mjcf(asset_path(f"{model}.xml"), device="cpu"),
+                 snapshot_path(model))
+    for mode in CLIPS:
+        with np.load(asset_path(f"{mode}_xref.npz")) as demo:
+            np.savez(clip_path(mode), **{b: demo[b] for b in TRACK_BODIES})
 
 
 if __name__ == "__main__":

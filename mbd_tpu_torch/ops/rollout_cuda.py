@@ -1,8 +1,9 @@
 """Whole-rollout CUDA kernel for Hopper: wrapper, model header, build.
 
 Replaces the TPU kernel ``mbd_tpu/ops/rollout_pallas.py::make_rollout_kernel``
-(reached through ``rollout_rewards_pallas``) in its base mode: per-step
-rewards and the validity flag, from a shared or per-sample initial state.
+(reached through ``rollout_rewards_pallas``): per-step rewards and the
+validity flag, from a shared or per-sample initial state, and on request
+the position trace (``need_qs``) and the demo log-density (``demo``).
 The kernel body is written once by hand (``csrc/rollout.cu``); each model
 arrives as a small generated header (``model_header``) of sizes and
 ``constexpr`` tables, so the kernel's loops over the topology unroll at
@@ -12,13 +13,14 @@ sources and the header, and bound with ``ctypes``.
 
 ``rollout_rewards_cuda`` keeps the signature and layout of
 ``rollout_rewards_pallas``: ``Y0s [N, H, nu]`` in, ``(rews [N, H],
-bad [N])`` out. A CPU tensor takes the plain version (``rollout_rewards``,
-the torch engine); a CUDA tensor launches the kernel or raises.
+bad [N][, qs [H, nq, N]][, logpd [N]])`` out. A CPU tensor takes the plain
+version (``rollout/fused.py::rollout_outputs``, the torch engine); a CUDA
+tensor launches the kernel or raises.
 
 Coverage: free, slide and hinge joints; plane–sphere, plane–capsule and
 capsule–capsule pairs (hopper, walker2d, halfcheetah, cartpole, ant,
-humanoidrun, humanoidstandup). A model with a ball joint or a sphere–box
-pair is refused with ``NotImplementedError``.
+humanoidrun, humanoidstandup, humanoidtrack). A model with a ball joint or
+a sphere–box pair is refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,12 +32,12 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..rollout.fused import rollout_rewards
+from ..rollout.fused import rollout_outputs
 from ..sim import batched as BT
 from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
 from ..sim.system import (FREE, HINGE, PAIR_CAPSULE_CAPSULE,
@@ -48,11 +50,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
-# Launches of the CUDA kernel, counted where the kernel is launched.
+# Launches of the CUDA kernel, counted where the kernel is launched; of
+# those, the launches with demo=True.
 LAUNCHES = 0
+DEMO_LAUNCHES = 0
 
 REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2, "run": 3,
-              "standup": 4, "healthy": 5}
+              "standup": 4, "healthy": 5, "track": 6}
 # contact points per pair kind, in sim/batched.py::collide_b's order
 PAIR_ROWS = {PAIR_PLANE_SPHERE: 1, PAIR_PLANE_CAPSULE: 2,
              PAIR_CAPSULE_CAPSULE: 1}
@@ -89,8 +93,6 @@ def check_supported(sys: System) -> None:
 def _lit(v, kind: str) -> str:
     if kind == "int":
         return str(int(v))
-    if kind == "bool":
-        return "true" if v else "false"
     return "%.9ef" % float(np.float32(v))
 
 
@@ -109,9 +111,35 @@ def _table(name: str, kind: str, values, stride: int = 0) -> str:
             f"  return v[{idx}];\n}}\n")
 
 
-def model_tables(sys: System, n_frames: int, reward) -> Dict:
+def check_demo(env, H: int) -> None:
+    """Raise ValueError unless ``env`` has a demo of at least H frames (the
+    one check of the wrapper and the planner)."""
+    xref = getattr(env, "xref", None)
+    if xref is None:
+        raise ValueError(f"the demo needs an env with a demo (xref); "
+                         f"{type(env).__name__} has none")
+    if H > xref.shape[1]:
+        raise ValueError(f"the horizon H = {H} is longer than the demo's "
+                         f"{xref.shape[1]} frames")
+
+
+def _lists(name: str, lists) -> list:
+    """Ragged index lists as a count table ``n_<name>(i)`` and a table
+    ``<name>(i, m)`` padded to the longest list: the kernel's topology loops
+    (``static_for`` in csrc/rollout.cu) visit these entries only, so the
+    code nvcc compiles grows with the tree's edges, not with its size
+    squared."""
+    width = max([len(lst) for lst in lists] + [1])
+    flat = [x for lst in lists for x in list(lst) + [0] * (width - len(lst))]
+    return [(f"n_{name}", "int", [len(lst) for lst in lists]),
+            (name, "int", flat, width)]
+
+
+def model_tables(sys: System, n_frames: int, reward,
+                 track: Sequence[int] = ()) -> Dict:
     """Sizes, scalar constants and tables of the generated header, each
-    rounded where the torch engine rounds it (sim/batched.py)."""
+    rounded where the torch engine rounds it (sim/batched.py). ``track``
+    lists the demo's tracked body ids (none for a model without one)."""
     check_supported(sys)
     tc = BT.topo(sys)
     nv, nj = sys.nv, sys.njnt
@@ -128,13 +156,28 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
     crange, gear = sys.host("actuator_ctrlrange"), sys.host("actuator_gear")
     P = sys.host("mask_dof_prevdof")
 
-    anc = [[False] * nv for _ in range(nv)]       # strict dof-tree ancestors
+    # strict dof-tree ancestors, from the parent up (descending index)
+    anc = [[] for _ in range(nv)]
     for i in range(nv):
         j = tc.dof_parent[i]
         while j >= 0:
-            anc[i][j] = True
+            anc[i].append(j)
             j = tc.dof_parent[j]
     pairs = set(tc.dof_pairs)
+    # each list in the order the torch engine visits it (ascending index
+    # unless said otherwise)
+    lists = dict(
+        anc=anc,
+        mpair=[[j for j in range(i + 1) if (i, j) in pairs]
+               for i in range(nv)],
+        body_jnt=tc.body_joints,
+        own=tc.own_dofs,
+        prev=[[j for j in range(nv) if P[i, j] > 0 and
+               sys.dof_bodyid[i] == sys.dof_bodyid[j]] for i in range(nv)],
+        child=[[c for c in tc.children[b] if c > b]
+               for b in range(sys.nbody)])
+    list_tables = [spec for key, lst in lists.items()
+                   for spec in _lists(key, lst)]
 
     # limits and springs act on slide and hinge joints only (substep_b)
     scalar = [j for j in range(nj) if sys.jnt_type[j] in (SLIDE, HINGE)]
@@ -161,7 +204,8 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
     sizes = dict(NQ=sys.nq, NV=nv, NU=sys.nu, NB=sys.nbody, NJ=nj,
                  NFRAMES=n_frames, NPAIR=len(sys.contact_pairs), NCON=ncon,
                  NLIMJ=len(limj), NC=nc,
-                 NSPRING=len(springs), NSENSOR=len(sensors))
+                 NSPRING=len(springs), NSENSOR=len(sensors),
+                 NTRACK=len(track))
     scalars = dict(
         kH=h, kInvH=recip32(h),
         kBetaInvH=f32(f32(BAUMGARTE_BETA) * recip32(h)),
@@ -171,6 +215,7 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
         kLimitK=float(sys.host("limit_stiffness")),
         kQdDiverged=BT.QD_DIVERGED, kZmin=floor_z - BT.ROOT_SINK_TOL,
         kZTarget=params.get("z_target", 0.0),
+        kVTarget=params.get("v_target", 0.0),
         kInvDt=params.get("inv_dt", 0.0),
         kDt=params.get("dt", 1.0),
         kZLow=params.get("z_low", 0.0), kZHigh=params.get("z_high", 0.0),
@@ -193,7 +238,6 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
         ("body_inertia", "float", sys.host("body_inertia").ravel(), 3),
         ("gravity", "float", sys.host("gravity")),
         ("jnt_type", "int", sys.jnt_type),
-        ("jnt_body", "int", sys.jnt_bodyid),
         ("jnt_qadr", "int", sys.jnt_qposadr),
         ("jnt_dadr", "int", sys.jnt_dofadr),
         ("jnt_axis", "float", sys.host("jnt_axis").ravel(), 3),
@@ -203,13 +247,6 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
         ("armature", "float", sys.host("dof_armature")),
         ("damping", "float", damping),
         ("h_damping", "float", [h * float(d) for d in damping]),
-        ("dof_anc", "bool", [anc[i][j] for i in range(nv)
-                             for j in range(nv)], nv),
-        ("m_pair", "bool", [(i, j) in pairs for i in range(nv)
-                            for j in range(nv)], nv),
-        ("prev_same", "bool", [P[i, j] > 0 and sys.dof_bodyid[i] ==
-                               sys.dof_bodyid[j] for i in range(nv)
-                               for j in range(nv)], nv),
         ("act_dadr", "int", [sys.jnt_dofadr[j] for j in sys.actuator_jntid]),
         ("act_lo", "float", crange[:, 0]),
         ("act_hi", "float", crange[:, 1]),
@@ -246,13 +283,16 @@ def model_tables(sys: System, n_frames: int, reward) -> Dict:
         ("con_sgn", "float", [x for s in con_sgn for x in s], nv),
         ("sensor_qadr", "int", [qa for qa, _ in sensors]),
         ("sensor_off", "float", [off for _, off in sensors]),
-    ]
+        ("track_body", "int", track),
+    ] + list_tables
     return dict(sizes=sizes, scalars=scalars, ints=ints, tables=tables)
 
 
 def model_header(env) -> str:
-    """The generated ``model.h`` for ``env``'s model, substeps and reward."""
-    t = model_tables(env.sys, env.n_frames, env.kernel_reward)
+    """The generated ``model.h`` for ``env``'s model, substeps, reward and
+    tracked bodies; the demo's frames are not in it."""
+    t = model_tables(env.sys, env.n_frames, env.kernel_reward,
+                     getattr(env, "track_body_ids", ()))
     out = ["// Generated by mbd_tpu_torch/ops/rollout_cuda.py::model_header.",
            "#pragma once", ""]
     out += [f"#define {k} {v}" for k, v in t["sizes"].items()]
@@ -280,6 +320,7 @@ class Built:
         self.seconds = seconds      # 0.0 when loaded from the cache
         lib.mbd_rollout.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
@@ -358,20 +399,24 @@ def build(env) -> Built:
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Y0s [N, H, nu] → (rews [N, H], bad [N]), rolled out from
-    ``state0.pipeline_state`` (q [nq] shared or [nq, N] per sample).
+def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
+                         need_qs: bool = False, demo: bool = False
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Y0s [N, H, nu] → (rews [N, H], bad [N][, qs [H, nq, N]][,
+    logpd [N]]), rolled out from ``state0.pipeline_state`` (q [nq] shared
+    or [nq, N] per sample); qs with ``need_qs``, the demo log-density
+    with ``demo``.
 
-    CPU tensors take the plain torch engine; CUDA tensors launch the
-    kernel or raise."""
-    global LAUNCHES
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global LAUNCHES, DEMO_LAUNCHES
     sys = env.sys
     check_supported(sys)
-    if not Y0s.is_cuda:
-        rews, _, bad = rollout_rewards(env, state0, Y0s)
-        return rews, bad
     N, H, nu = Y0s.shape
+    if demo:
+        check_demo(env, H)
+    if not Y0s.is_cuda:
+        return rollout_outputs(env, state0, Y0s, need_qs, demo)
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
     if Y0s.dtype != torch.float32:
@@ -388,18 +433,34 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
     q0, qd0 = q0.contiguous(), qd0.contiguous()
     U = Y0s.permute(1, 2, 0).contiguous()                 # [H, nu, N]
-    rews = torch.empty((H, N), dtype=torch.float32, device=Y0s.device)
-    bad = torch.empty((N,), dtype=torch.float32, device=Y0s.device)
+    f32 = dict(dtype=torch.float32, device=Y0s.device)
+    rews = torch.empty((H, N), **f32)
+    bad = torch.empty((N,), **f32)
+    qs = torch.empty((H, sys.nq, N), **f32) if need_qs else None
+    logpd = torch.empty((N,), **f32) if demo else None
+    xref = env.xref_frames if demo else None           # [H_demo, 5, 3]
+    if demo and xref.device != Y0s.device:
+        raise ValueError("the env's demo frames must be on the device of Y0s")
     # header generation and source hashing once per model, not per launch
     built = sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}",
                        lambda: build(env))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(Y0s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = built.lib.mbd_rollout(
             q0.data_ptr(), qd0.data_ptr(), int(per_sample), U.data_ptr(),
-            rews.data_ptr(), bad.data_ptr(), N, H, stream)
+            rews.data_ptr(), bad.data_ptr(), ptr(qs), ptr(xref), ptr(logpd),
+            N, H, stream)
     if err != 0:
         raise RuntimeError(f"CUDA rollout kernel launch failed: error {err}")
     LAUNCHES += 1
-    return rews.t(), bad
-
+    DEMO_LAUNCHES += int(demo)
+    out = (rews.t(), bad)
+    if need_qs:
+        out += (qs,)
+    if demo:
+        out += (logpd,)
+    return out

@@ -7,6 +7,8 @@ Per reverse step i, from Ndiffuse−1 down to 1:
     Y0s  = clip(Ȳᵢ + σᵢ·ε, −1, 1),  ε ~ N(0, 1) of shape [Nsample, H, nu]
     rews = mean per-step reward of each rollout (the CUDA kernel on the
            card, the torch engine on the CPU), standardized → logp₀
+    [demo] logp₀ = max(logp₀, logp_demo), standardized again and divided
+           by the temperature a second time (below)
     w    = softmax(logp₀);  Ȳ = Σₙ wₙ·Y0sₙ
     score = (−Yi + √ᾱᵢ·Ȳ)/(1 − ᾱᵢ)
     Ȳᵢ₋₁ = (Yi + (1 − ᾱᵢ)·score)/√αᵢ/√ᾱᵢ₋₁
@@ -14,6 +16,13 @@ Per reverse step i, from Ndiffuse−1 down to 1:
 Samples flagged by the engine's validity envelope (or with a non-finite
 reward) are demoted to the worst valid reward for the statistics and get
 zero weight; when every sample is flagged the weights fall back to uniform.
+
+Demo conditioning (``enable_demo``, reference mbd_planner.py:117-125, and
+``docs/DEMO_CONDITIONING.md``): each rollout's demo-tracking log-density,
+shifted so that the best sample's is 0, plus ``env.rew_xref``, is
+standardized with the reward's mean and std into logp_demo. The fused
+log-weights are standardized again and divided by the temperature a second
+time: the reference's behaviour, kept as it is.
 
 Every tensor lives on ``env.device`` and the loop never waits on the
 device until the final evaluation. Random numbers come from an explicit
@@ -30,7 +39,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.schedule import DiffusionSchedule, make_schedule
-from ..ops.rollout_cuda import rollout_rewards_cuda
+from ..ops.rollout_cuda import check_demo, rollout_rewards_cuda
 
 
 @dataclass
@@ -41,7 +50,7 @@ class MBDConfig:
     temp_sample: float = 0.1     # softmax temperature
     beta0: float = 1e-4
     betaT: float = 1e-2
-    enable_demo: bool = False    # demo-conditioned diffusion (not ported)
+    enable_demo: bool = False    # demo-conditioned diffusion
 
 
 # Per-env recommended overrides (mbd_tpu/planners/mbd.py:54-61).
@@ -82,9 +91,7 @@ def make_reverse_once(env, cfg: MBDConfig, state_init,
     """The reverse step as ``reverse_once(Ybar_i, i, eps) → (Ybar_{i−1},
     mean reward)``, with ``eps`` [Nsample, Hsample, nu] the step's noise."""
     if cfg.enable_demo:
-        raise NotImplementedError(
-            "demo-conditioned diffusion is not ported yet (ROADMAP.md "
-            "Queue 2 K4)")
+        check_demo(env, cfg.Hsample)
     # the barycenter is a float32 contraction: keep it out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -94,7 +101,11 @@ def make_reverse_once(env, cfg: MBDConfig, state_init,
         Yi = Ybar_i * torch.sqrt(abar)
         Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i, -1.0, 1.0)
 
-        rewss, bad = rollout_rewards_cuda(env, state_init, Y0s)
+        if cfg.enable_demo:
+            rewss, bad, xref_logpds = rollout_rewards_cuda(
+                env, state_init, Y0s, demo=True)
+        else:
+            rewss, bad = rollout_rewards_cuda(env, state_init, Y0s)
         rews = rewss.mean(dim=-1)
         # flagged or non-finite rollouts: worst valid reward for the
         # statistics, zero weight in the barycenter
@@ -109,6 +120,16 @@ def make_reverse_once(env, cfg: MBDConfig, state_init,
         rew_std = torch.where(rew_std < 1e-4, torch.ones_like(rew_std),
                               rew_std)
         logp0 = (rews - rew_mean) / rew_std / cfg.temp_sample
+
+        if cfg.enable_demo:
+            # the max over every sample, flagged ones included
+            xref_logpds = xref_logpds - xref_logpds.max()
+            logpdemo = (xref_logpds + env.rew_xref - rew_mean) / rew_std \
+                / cfg.temp_sample
+            logp0 = torch.where(logpdemo > logp0, logpdemo, logp0)
+            lstd = logp0.std(correction=0)
+            lstd = torch.where(lstd < 1e-4, torch.ones_like(lstd), lstd)
+            logp0 = (logp0 - logp0.mean()) / lstd / cfg.temp_sample
 
         logp0 = torch.where(valid, logp0, -inf)
         weights = torch.softmax(logp0, dim=0)

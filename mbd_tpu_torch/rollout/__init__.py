@@ -1,1 +1,1 @@
-from .fused import rollout_qs, rollout_rewards  # noqa: F401
+from .fused import rollout_outputs, rollout_qs, rollout_rewards  # noqa: F401

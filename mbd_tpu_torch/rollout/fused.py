@@ -2,9 +2,10 @@
 ``mbd_tpu/rollout/fused.py``).
 
 Rolls Nsample control sequences out over the horizon and scores them with
-the env's ``reward_qs_b``. On the CPU this is the planner's rollout; on the
-card it is the oracle the CUDA kernel (``ops/rollout_cuda.py``) is held
-against, and the planner never calls it there.
+the env's ``reward_qs_b`` and, for a demo, its ``traj_xref_logpd_qs``. On
+the CPU this is the planner's rollout; on the card it is the oracle the
+CUDA kernel (``ops/rollout_cuda.py``) is held against, and the planner
+never calls it there.
 """
 
 from __future__ import annotations
@@ -60,3 +61,20 @@ def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False
     qs, qds, diverged = rollout_qs(sys, env.n_frames, q0, qd0, U)
     rews = env.reward_qs_b(qs, qds, U, q0, qd0)          # [H, N]
     return rews.transpose(0, 1), (qs if need_qs else None), diverged
+
+
+def rollout_outputs(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
+                    demo: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the CUDA rollout kernel: Y0s [N, H, nu] →
+    (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]]), in the order of
+    ``rollout_rewards_pallas``. The demo log-density is scored from the
+    position trace, as JAX's fused engine scores it
+    (``mbd_tpu/planners/mbd.py:179-188``)."""
+    rews, qs, bad = rollout_rewards(env, state0, Y0s,
+                                    need_qs=need_qs or demo)
+    out = (rews, bad)
+    if need_qs:
+        out += (qs,)
+    if demo:
+        out += (env.traj_xref_logpd_qs(qs),)
+    return out

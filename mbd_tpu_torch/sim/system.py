@@ -22,6 +22,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT, resolve
+
 # Joint types (MuJoCo mjtJoint values)
 FREE, BALL, SLIDE, HINGE = 0, 1, 2, 3
 # Geom types (MuJoCo mjtGeom values)
@@ -148,15 +150,17 @@ _DEFAULT_GAINS = dict(contact_stiffness=2500.0, contact_damping=100.0,
                       limit_damping=100.0)
 
 
-def load_mjcf(path: str, device="cpu") -> System:
+def load_mjcf(path: str, device=DEFAULT) -> System:
     """Compile an MJCF file with MuJoCo and freeze it into a System."""
     import mujoco
 
     return from_mjmodel(mujoco.MjModel.from_xml_path(path), device=device)
 
 
-def from_mjmodel(m: Any, device="cpu") -> System:
+def from_mjmodel(m: Any, device=DEFAULT) -> System:
     import mujoco
+
+    device = resolve(device)         # fail before the tables are built
 
     if np.any(m.jnt_type == mujoco.mjtJoint.mjJNT_BALL):
         raise NotImplementedError("ball joints not supported")
@@ -291,11 +295,12 @@ def from_mjmodel(m: Any, device="cpu") -> System:
     return system_from_numpy(fields, device=device)
 
 
-def system_from_numpy(fields: Dict[str, Any], device="cpu") -> System:
+def system_from_numpy(fields: Dict[str, Any], device=DEFAULT) -> System:
     """Build a System from field values given as numpy arrays, tuples or
     scalars (e.g. the JAX ``System``'s fields, or a saved snapshot):
     numeric fields are rounded to float32 once, here, exactly as the JAX
     loader does."""
+    device = resolve(device)
     kw: Dict[str, Any] = {}
     for k in STATIC_FIELDS:
         v = fields[k]
@@ -329,7 +334,7 @@ def save_npz(sys: System, path: str) -> None:
     np.savez(path, **out)
 
 
-def load_npz(path: str, device="cpu") -> System:
+def load_npz(path: str, device=DEFAULT) -> System:
     """A System from a snapshot written by ``save_npz``."""
     with np.load(path, allow_pickle=False) as z:
         fields = {k: z[k] for k in z.files}

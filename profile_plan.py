@@ -4,7 +4,8 @@
     python3 profile_plan.py [--env hopper] [--seed 0]
 
 Runs ``mbd.plan`` on the env at its ``recommended_config`` (hopper:
-2048 / 50 / 100; humanoidrun: 8192 / 50 / 300) twice on the first CUDA
+2048 / 50 / 100; humanoidrun: 8192 / 50 / 300; humanoidtrack: 2048 / 50 /
+100 with its demo) twice on the first CUDA
 card: once to build the kernel and warm up, once under
 ``torch.profiler``. Prints the card's name and
 power limit, the traced plan's wall time, the union of the device's
@@ -45,7 +46,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     env = envs.get_env(args.env, device="cuda")
-    cfg = mbd.recommended_config(args.env)
+    # an env with a demo (humanoidtrack) plans with it
+    cfg = mbd.recommended_config(args.env, mbd.MBDConfig(
+        enable_demo=getattr(env, "xref", None) is not None))
 
     def run():
         gen = torch.Generator("cuda").manual_seed(args.seed)

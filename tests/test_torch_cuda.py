@@ -8,9 +8,10 @@ JAX):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: rewards to atol 1e-5, the CPU tests' tolerance
-(tests/test_torch_rollout.py); the kernel, built with ``--fmad=false``,
-agrees with the plain version bit for bit. Validity flags equal.
+Tolerance: rewards, position traces and demo log-densities to atol 1e-5,
+the CPU tests' tolerance (tests/test_torch_rollout.py); the kernel, built
+with ``--fmad=false``, agrees with the plain version bit for bit on rewards
+and traces. Validity flags equal.
 """
 
 from types import SimpleNamespace
@@ -21,7 +22,7 @@ import torch
 
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.ops import rollout_cuda
-from mbd_tpu_torch.rollout.fused import rollout_rewards
+from mbd_tpu_torch.rollout.fused import rollout_outputs, rollout_rewards
 
 ATOL = 1e-5
 
@@ -33,24 +34,31 @@ def card():
     return torch.device("cuda")
 
 
+def _state(env, gen, N, per_sample):
+    """The env's reset state, or per sample with 0.01 noise on q."""
+    state0 = env.reset(gen)
+    if not per_sample:
+        return state0
+    ps = state0.pipeline_state
+    q = ps.q[:, None] + 0.01 * torch.randn((env.sys.nq, N), generator=gen,
+                                           device=ps.q.device)
+    return SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=q.contiguous(),
+        qd=ps.qd[:, None].expand(env.sys.nv, N).contiguous()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,N,per_sample", [
     ("hopper", 256, False), ("walker2d", 256, False),
     ("halfcheetah", 256, False), ("cartpole", 256, False),
     ("hopper", 257, False), ("walker2d", 64, True), ("ant", 256, False),
     ("humanoidrun", 256, False), ("humanoidstandup", 256, False),
-    ("humanoidrun", 64, True)])
+    ("humanoidrun", 64, True), ("humanoidtrack", 256, False),
+    ("humanoidtrack", 64, True)])
 def test_kernel_matches_plain_version(card, name, N, per_sample):
     env = envs.get_env(name, device=card)
     gen = torch.Generator(card).manual_seed(0)
-    state0 = env.reset(gen)
-    if per_sample:
-        ps = state0.pipeline_state
-        q = ps.q[:, None] + 0.01 * torch.randn(
-            (env.sys.nq, N), generator=gen, device=card)
-        state0 = SimpleNamespace(pipeline_state=SimpleNamespace(
-            q=q.contiguous(),
-            qd=ps.qd[:, None].expand(env.sys.nv, N).contiguous()))
+    state0 = _state(env, gen, N, per_sample)
     Y0s = 2 * torch.rand((N, 5, env.action_size), generator=gen,
                          device=card) - 1
     launches = rollout_cuda.LAUNCHES
@@ -75,3 +83,35 @@ def test_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         rollout_cuda.rollout_rewards_cuda(
             env, state0, torch.zeros((4, 3, 2), device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,N,need_qs,demo,per_sample", [
+    ("hopper", 256, True, False, False),
+    ("humanoidtrack", 255, True, True, False),
+    ("humanoidtrack", 64, False, True, True),
+    ("humanoidtrack_walk", 128, False, True, False)])
+def test_kernel_trace_and_demo_match_plain_version(card, name, N, need_qs,
+                                                   demo, per_sample):
+    """need_qs: the position trace equals the plain version's; demo: the
+    log-density within 1e-5 of ``traj_xref_logpd_qs`` of the plain
+    trace."""
+    env = envs.get_env(name, device=card)
+    gen = torch.Generator(card).manual_seed(1)
+    state0 = _state(env, gen, N, per_sample)
+    Y0s = 2 * torch.rand((N, 5, env.action_size), generator=gen,
+                         device=card) - 1
+    demos = rollout_cuda.DEMO_LAUNCHES
+    out_k = rollout_cuda.rollout_rewards_cuda(env, state0, Y0s,
+                                              need_qs=need_qs, demo=demo)
+    torch.cuda.synchronize()
+    assert rollout_cuda.DEMO_LAUNCHES == demos + int(demo)
+    out_p = rollout_outputs(env, state0, Y0s, need_qs=need_qs, demo=demo)
+    assert len(out_k) == len(out_p) == 2 + int(need_qs) + int(demo)
+    assert torch.equal(out_k[1], out_p[1])
+    for k, p in zip(out_k[:1] + out_k[2:], out_p[:1] + out_p[2:]):
+        assert k.shape == p.shape
+        np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
+                                   rtol=0, atol=ATOL)
+    if need_qs:
+        assert torch.equal(out_k[2], out_p[2])

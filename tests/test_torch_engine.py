@@ -36,17 +36,18 @@ from mbd_tpu_torch.sim import batched as TB
 from mbd_tpu_torch.sim.system import load_mjcf as torch_load
 
 SCENES = ["hopper", "walker2d", "halfcheetah", "cartpole", "pushT", "ant",
-          "humanoidrun", "humanoidstandup"]
+          "humanoidrun", "humanoidstandup", "humanoidtrack"]
 N = 8
 ATOL = 1e-5
 # qd tolerance per scene (module docstring)
-QD_ATOL = {"humanoidrun": 1e-4, "humanoidstandup": 1e-4}
+QD_ATOL = {"humanoidrun": 1e-4, "humanoidstandup": 1e-4,
+           "humanoidtrack": 1e-4}
 N_FRAMES = 2
 
 
 def _systems(scene):
     path = asset_path(f"{scene}.xml")
-    return jax_load(path), torch_load(path)
+    return jax_load(path), torch_load(path, device="cpu")
 
 
 def _inputs(sys, seed=0):

@@ -22,6 +22,13 @@ humanoids; 1.2e-7 on cartpole (the cosine of its pole angle in the
 reward); 7.2e-7 on ant, where one sample's friction direction took that
 ulp and the reward divides the step's displacement by dt = 0.01.
 
+The position trace (``need_qs``) and the demo log-density (``demo``) read
+what the rewards do not: every q after the step, where the free root's
+integrator takes the sine and cosine of its new angular speed, and, for
+the demo, the forward kinematics of the moved hinges. Those cases give
+the plain engine sqrt, sin and cos taken in double and rounded once
+(``rounded_math``), and then hold the trace bit for bit.
+
 Skips where g++ is missing.
 """
 
@@ -36,7 +43,7 @@ import torch
 
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.ops import rollout_cuda
-from mbd_tpu_torch.rollout.fused import rollout_rewards
+from mbd_tpu_torch.rollout.fused import rollout_outputs
 from mbd_tpu_torch.sim.system import FREE, HINGE, SLIDE
 
 SHIM = """
@@ -52,13 +59,15 @@ static dim3 blockIdx, threadIdx, blockDim;
 DRIVER = """
 extern "C" void cpu_rollout(const float* q0, const float* qd0,
                             int per_sample, const float* U, float* rews,
-                            float* bad, int N, int H) {
+                            float* bad, float* qs, const float* xref,
+                            float* logpd, int N, int H) {
   blockDim.x = kThreads;
   for (int b = 0; b < (N + kThreads - 1) / kThreads; ++b)
     for (int t = 0; t < kThreads; ++t) {
       blockIdx.x = b;
       threadIdx.x = t;
-      rollout_kernel(q0, qd0, per_sample, U, rews, bad, N, H);
+      rollout_kernel(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, N,
+                     H);
     }
 }
 """
@@ -83,7 +92,7 @@ def _cpu_kernel(env, out_dir):
                     cpp], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
     lib.cpu_rollout.restype = None
     return lib
 
@@ -109,22 +118,74 @@ def _inputs(sys, gen):
     return q.contiguous(), qd.contiguous()
 
 
-@pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
-                                  "cartpole", "ant", "humanoidrun",
-                                  "humanoidstandup"])
-def test_kernel_source_matches_plain_version(name, tmp_path):
-    env = envs.get_env(name)
+def _run(name, out_dir, need_qs=False, demo=False):
+    """One substep of the kernel source and of the plain version from the
+    same inputs: (kernel outputs, plain outputs), each (rews [N, 1],
+    bad[, qs][, logpd])."""
+    env = envs.get_env(name, device="cpu")
     env.n_frames = 1
-    lib = _cpu_kernel(env, str(tmp_path))
+    lib = _cpu_kernel(env, out_dir)
     gen = torch.Generator().manual_seed(0)
     q0, qd0 = _inputs(env.sys, gen)
     Y0s = 2 * torch.rand((N, 1, env.action_size), generator=gen) - 1
     U = Y0s.permute(1, 2, 0).contiguous()
     rews, bad = torch.empty((1, N)), torch.empty(N)
+    qs = torch.empty((1, env.sys.nq, N)) if need_qs else None
+    logpd = torch.empty(N) if demo else None
+    xref = env.xref_frames if demo else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib.cpu_rollout(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
-                    rews.data_ptr(), bad.data_ptr(), N, 1)
+                    rews.data_ptr(), bad.data_ptr(), ptr(qs), ptr(xref),
+                    ptr(logpd), N, 1)
     state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
-    r_p, _, bad_p = rollout_rewards(env, state, Y0s)
+    plain = rollout_outputs(env, state, Y0s, need_qs=need_qs, demo=demo)
+    kernel = (rews.t(), bad) + tuple(t for t in (qs, logpd) if t is not None)
     assert torch.isfinite(rews).all()
-    assert torch.equal(bad, bad_p)
-    assert float((rews.t() - r_p).abs().max()) <= ATOL
+    assert torch.equal(kernel[1], plain[1])
+    assert float((kernel[0] - plain[0]).abs().max()) <= ATOL
+    return kernel, plain
+
+
+@pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
+                                  "cartpole", "ant", "humanoidrun",
+                                  "humanoidstandup", "humanoidtrack"])
+def test_kernel_source_matches_plain_version(name, tmp_path):
+    _run(name, str(tmp_path))
+
+
+@pytest.fixture
+def rounded_math(monkeypatch):
+    """The plain engine with float32 sqrt, sin and cos taken in double and
+    rounded once. The position trace reads what the one-substep inputs
+    avoid elsewhere: the integrator's sin and cos of the root's new
+    angular speed, and torch's CPU sqrt (module docstring). With these,
+    the kernel source and the plain version agreed exactly on every model
+    tried (hopper, ant, humanoidrun, humanoidtrack: trace, rewards and
+    demo score)."""
+    for name in ("sqrt", "sin", "cos"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name,
+                            lambda x, fn=fn: fn(x.double()).float())
+
+
+@pytest.mark.parametrize("name", ["hopper", "humanoidtrack"])
+def test_kernel_source_trace_is_plain_trace(name, tmp_path, rounded_math):
+    """need_qs: the kernel's position trace is the plain version's, bit
+    for bit."""
+    kernel, plain = _run(name, str(tmp_path), need_qs=True)
+    assert torch.equal(kernel[2], plain[2])
+
+
+def test_kernel_source_demo_logpd(tmp_path, rounded_math):
+    """demo on humanoidtrack: the kernel's running score against
+    ``traj_xref_logpd_qs`` of the plain trace, at atol 2e-6 (the order of
+    the sums differs: a left-to-right running sum in the kernel,
+    ``linalg.norm`` and ``mean`` in torch)."""
+    kernel, plain = _run("humanoidtrack", str(tmp_path), need_qs=True,
+                         demo=True)
+    assert torch.equal(kernel[2], plain[2])
+    assert float((kernel[3] - plain[3]).abs().max()) <= 2e-6
+    assert float(kernel[3].std()) > 0

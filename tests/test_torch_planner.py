@@ -25,7 +25,7 @@ def test_schedule_matches_jax(n):
     """atol 2e-6: XLA forms the cumprod as a reduce_window and the
     linspace's quotient in its own order, so float32 last bits differ
     (measured at most 1.1e-6, on sigmas at n = 300)."""
-    js, ts = jax_schedule(n), make_schedule(n)
+    js, ts = jax_schedule(n), make_schedule(n, device="cpu")
     for k in SCHED_FIELDS:
         a, b = np.asarray(getattr(js, k)), getattr(ts, k).numpy()
         assert b.dtype == np.float32 and a.shape == b.shape
@@ -51,7 +51,7 @@ def test_reverse_step_matches_jax():
     name = "hopper"
     cfg = dict(Nsample=16, Hsample=5, Ndiffuse=8, temp_sample=1.0)
     i = cfg["Ndiffuse"] - 1
-    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name, device="cpu")
     jstate = jenv.reset(jax.random.PRNGKey(0))
     jsched = jax_schedule(cfg["Ndiffuse"])
     Ybar = np.random.default_rng(0).uniform(
@@ -79,7 +79,7 @@ def test_reverse_step_matches_jax():
 def _plan_matches_jax(name, cfg):
     """Plan ``name`` in both packages from JAX's reset state and JAX's
     noise stream; returns (JAX result, port result, progress calls)."""
-    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name, device="cpu")
     jres = jax_mbd.plan(jenv, jax_mbd.MBDConfig(**cfg),
                         jax.random.PRNGKey(0), engine="fused")
 
@@ -127,7 +127,7 @@ def test_plan_humanoidrun_on_cpu():
     """The flagship model's plan at a tiny size on the CPU (JAX cannot
     compile a humanoid engine here in reasonable time, so this one is
     torch only): shapes, finite outputs, and a clean final plan."""
-    env = envs.get_env("humanoidrun")
+    env = envs.get_env("humanoidrun", device="cpu")
     cfg = mbd.MBDConfig(Nsample=8, Hsample=3, Ndiffuse=3,
                         temp_sample=mbd.TEMP_RECOMMEND["humanoidrun"])
     res = mbd.plan(env, cfg, torch.Generator().manual_seed(0))
@@ -141,14 +141,15 @@ def test_plan_humanoidrun_on_cpu():
 
 def test_plan_draws_from_generator_and_refuses_demo():
     """Without ``eps`` the noise comes from the generator: two plans from
-    equal seeds agree, the demo branch is refused."""
-    env = envs.get_env("cartpole")
+    equal seeds agree; ``enable_demo`` on an env without a demo (cartpole)
+    is refused."""
+    env = envs.get_env("cartpole", device="cpu")
     cfg = mbd.MBDConfig(Nsample=8, Hsample=4, Ndiffuse=3)
     r1 = mbd.plan(env, cfg, torch.Generator().manual_seed(5))
     r2 = mbd.plan(env, cfg, torch.Generator().manual_seed(5))
     assert torch.equal(r1.Ybars, r2.Ybars)
     assert torch.isfinite(r1.rews_trace).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="demo"):
         mbd.plan(env, mbd.MBDConfig(Nsample=8, Hsample=4, Ndiffuse=3,
                                     enable_demo=True),
                  torch.Generator().manual_seed(5))

@@ -62,7 +62,7 @@ def _state(q, qd):
 
 def _case(name, N, H, per_sample=False, seed=1):
     """(JAX env, port env, JAX state, port state, Y0s) from one seed."""
-    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name, device="cpu")
     js = jenv.reset(jax.random.PRNGKey(0)).pipeline_state
     q, qd = np.asarray(js.q), np.asarray(js.qd)
     rng = np.random.default_rng(seed)
@@ -133,11 +133,12 @@ def test_model_header_hopper():
     """The generated header carries hopper's sizes: 4 plane–capsule pairs
     (8 contact rows) and 3 capsule–capsule pairs (3 rows), then 3 limited
     joints (6 rows): 17 constraint rows."""
-    env = envs.get_env("hopper")
+    env = envs.get_env("hopper", device="cpu")
     sizes = rollout_cuda.model_tables(env.sys, env.n_frames,
                                       env.kernel_reward)["sizes"]
     assert sizes == dict(NQ=6, NV=6, NU=3, NB=5, NJ=6, NFRAMES=20, NPAIR=7,
-                         NCON=11, NLIMJ=3, NC=17, NSPRING=0, NSENSOR=1)
+                         NCON=11, NLIMJ=3, NC=17, NSPRING=0, NSENSOR=1,
+                         NTRACK=0)
     header = rollout_cuda.model_header(env)
     assert "#define NC 17" in header
     assert "constexpr int kReward = 0;" in header        # progress
@@ -146,30 +147,79 @@ def test_model_header_hopper():
 
 # Constraint rows: one per plane–sphere pair, two per plane–capsule pair
 # (the capsule's two end caps), then two per limited joint. ant: 1 + 12·2
-# + 8·2; humanoidrun: 2 + 17·2; humanoidstandup: 3 + 6·2 + 17·2.
+# + 8·2; humanoidrun: 2 + 17·2; humanoidstandup: 3 + 6·2 + 17·2;
+# humanoidtrack: 2 + (17 hinges + 5 marker slides)·2.
 @pytest.mark.parametrize("name,nc", [("walker2d", 26), ("halfcheetah", 28),
                                      ("cartpole", 2), ("ant", 41),
                                      ("humanoidrun", 36),
-                                     ("humanoidstandup", 49)])
+                                     ("humanoidstandup", 49),
+                                     ("humanoidtrack", 46)])
 def test_model_header_sizes(name, nc):
-    env = envs.get_env(name)
+    env = envs.get_env(name, device="cpu")
     assert f"#define NC {nc}\n" in rollout_cuda.model_header(env)
 
 
 @pytest.mark.parametrize("name,ncon,reward", [
     ("ant", 25, "healthy"), ("humanoidrun", 2, "run"),
-    ("humanoidstandup", 15, "standup")])
+    ("humanoidstandup", 15, "standup"), ("humanoidtrack", 2, "track")])
 def test_kernel_accepts_free_roots_and_plane_sphere(name, ncon, reward):
     """Free roots and plane–sphere pairs are in the kernel: the header
     carries the contact rows, the free root's height sensor, the env's
     reward branch and, at these sizes, rolled per-row loops."""
-    env = envs.get_env(name)
+    env = envs.get_env(name, device="cpu")
     rollout_cuda.check_supported(env.sys)
     t = rollout_cuda.model_tables(env.sys, env.n_frames, env.kernel_reward)
     assert t["sizes"]["NCON"] == ncon and t["sizes"]["NSENSOR"] == 1
     assert t["ints"]["kReward"] == rollout_cuda.REWARD_IDS[reward]
     assert t["ints"]["kRowUnroll"] == 1
     assert ("sensor_qadr", "int", [2]) in t["tables"]   # root z = q[2]
+
+
+def test_humanoidtrack_header_tracks_bodies():
+    """The demo's tracked bodies are in the header (torso, thighs, shins);
+    the clip is not, so jog and walk share one build."""
+    jog = envs.get_env("humanoidtrack", device="cpu")
+    walk = envs.get_env("humanoidtrack_walk", device="cpu")
+    t = rollout_cuda.model_tables(jog.sys, jog.n_frames, jog.kernel_reward,
+                                  jog.track_body_ids)
+    assert t["sizes"]["NTRACK"] == 5
+    assert ("track_body", "int", (1, 7, 4, 8, 5)) in t["tables"]
+    assert rollout_cuda.model_header(jog) == rollout_cuda.model_header(walk)
+    assert "#define NTRACK 0\n" in rollout_cuda.model_header(
+        envs.get_env("humanoidrun", device="cpu"))
+
+
+def test_cuda_wrapper_demo_and_trace_on_cpu():
+    """On the CPU the wrapper's need_qs and demo outputs are the plain
+    version's: the trace, and ``traj_xref_logpd_qs`` of it."""
+    env = envs.get_env("humanoidtrack", device="cpu")
+    state = env.reset(torch.Generator())
+    Y = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (3, 2, env.action_size)).astype(np.float32))
+    rews, bad, qs, logpd = rollout_cuda.rollout_rewards_cuda(
+        env, state, Y, need_qs=True, demo=True)
+    r_p, qs_p, bad_p = rollout_rewards(env, state, Y, need_qs=True)
+    assert torch.equal(rews, r_p) and torch.equal(bad, bad_p)
+    assert torch.equal(qs, qs_p) and qs.shape == (2, env.sys.nq, 3)
+    assert torch.equal(logpd, env.traj_xref_logpd_qs(qs_p))
+    rews2, bad2, logpd2 = rollout_cuda.rollout_rewards_cuda(
+        env, state, Y, demo=True)
+    assert torch.equal(logpd2, logpd)
+
+
+def test_cuda_wrapper_refuses_demo_it_cannot_score():
+    """demo=True raises ValueError on an env without a demo and for a
+    horizon longer than the demo's 50 frames."""
+    hopper = envs.get_env("hopper", device="cpu")
+    with pytest.raises(ValueError, match="demo"):
+        rollout_cuda.rollout_rewards_cuda(
+            hopper, hopper.reset(torch.Generator()),
+            torch.zeros(2, 3, hopper.action_size), demo=True)
+    track = envs.get_env("humanoidtrack", device="cpu")
+    with pytest.raises(ValueError, match="50 frames"):
+        rollout_cuda.rollout_rewards_cuda(
+            track, track.reset(torch.Generator()),
+            torch.zeros(2, 51, track.action_size), demo=True)
 
 
 @pytest.mark.parametrize("scene", ["ball", "pushT"])
@@ -180,7 +230,7 @@ def test_kernel_refuses_free_joints_and_sphere_box(scene):
     from mbd_tpu_torch.sim.system import BALL, load_mjcf
 
     sys = load_mjcf(asset_path("ant.xml" if scene == "ball"
-                               else f"{scene}.xml"))
+                               else f"{scene}.xml"), device="cpu")
     if scene == "ball":
         sys = sys.replace(jnt_type=(BALL,) + sys.jnt_type[1:])
     env = SimpleNamespace(sys=sys, n_frames=5, kernel_reward=("progress", {}))
@@ -197,7 +247,7 @@ def test_kernel_refuses_free_joints_and_sphere_box(scene):
 def test_reward_qs_b_matches_jax(name):
     """Each free-root env's batch-last reward against JAX's on the same
     random trajectories (qs, qds, us, q0), at 1e-6."""
-    jenv, tenv = jax_envs.get_env(name), envs.get_env(name)
+    jenv, tenv = jax_envs.get_env(name), envs.get_env(name, device="cpu")
     sys = tenv.sys
     H, N = 6, 16
     rng = np.random.default_rng(7)
