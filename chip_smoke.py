@@ -12,12 +12,15 @@ Phases, each of which raises on failure (exit code 1):
 2. while they build, the operations per sample and env step of the plain
    version (the torch engine), counted on the CPU for each kernel's bound,
    then the plain version on the card on the inputs of every comparison
-   but the paths' own: all eight models at N = 2048, H = 4; hopper at a
+   but the paths' own: all nine models at N = 2048, H = 4; hopper at a
    ragged N = 2047 and with the position trace (``need_qs``); walker2d
    with per-sample initial states; humanoidrun at a ragged N = 8191 and
    with per-sample initial states; humanoidtrack at a ragged N = 2047 with
    the trace and the demo log-density (``demo``), and with per-sample
-   initial states and the demo;
+   initial states and the demo; pushT with per-sample initial states whose
+   pushers lie inside a bar of the slider, within the pusher's radius
+   outside one, or clear of both (the sphere–box pair's two branches), and
+   with the trace;
 3. as each build ends, the kernel against those plain runs (rewards,
    traces and log-densities to atol 1e-5, validity flags equal), its own
    time by CUDA events and its bound, then that model's path. After a
@@ -28,6 +31,16 @@ Phases, each of which raises on failure (exit code 1):
    - hopper: ``envs.get_env("hopper", device="cuda")`` → ``mbd.plan`` at
      ``recommended_config("hopper")`` (2048 / 50 / 100), seed 0, to a
      clean final reward of at least 1.8, compared at N = 2048, H = 50;
+     then the baselines: ``path_integral.plan`` with MPPI, CEM and CMA-ES
+     at ``path_integral.recommended_config("hopper")`` (2048 / 50 /
+     Nrefine 100), seed 0, each to a clean final reward of at least JAX's
+     8-seed mean minus 3σ and at least 99 launches;
+   - pushT: ``recommended_config("pushT")`` (2048 / 40 / 200), seed 0: at
+     least 199 launches, a clean final reward of at least 0.57, compared
+     at N = 2048, H = 40; then the three baselines at
+     ``path_integral.recommended_config("pushT")`` (2048 / 40 / Nrefine
+     200), each clean, with at least 199 launches, above the reward of
+     zero controls from its own reset;
    - humanoidrun: ``recommended_config("humanoidrun")`` (8192 / 50 / 300),
      seed 0: at least 299 kernel launches, a clean final reward of at
      least 1.0, compared at N = 8192, H = 50;
@@ -41,7 +54,8 @@ Phases, each of which raises on failure (exit code 1):
    - every other model: a short plan (Nsample 256, H 10, Ndiffuse 5);
    no path calls the plain engine on the card, and each ends with finite
    outputs of the expected shapes;
-4. one JSON line with the kernels' numbers, then the device line.
+4. one JSON line with the kernels' numbers (with each baseline's
+   launches, final reward and wall), then the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -64,7 +78,7 @@ from types import SimpleNamespace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # every model the kernel serves, the longest builds first
 ENVS = ("humanoidtrack", "humanoidrun", "humanoidstandup", "ant", "walker2d",
-        "halfcheetah", "hopper", "cartpole")
+        "halfcheetah", "pushT", "hopper", "cartpole")
 N_CHECK, H_CHECK = 2048, 4
 # Kernel against plain version: the CPU tests' tolerance for rollout
 # rewards (tests/test_torch_rollout.py), also for the position trace and
@@ -86,6 +100,16 @@ MIN_HUMANOIDTRACK_LOGPD = -0.70
 # ... and track better than the same seed's plan without the demo, by half
 # the spread of JAX's 8 seeds without it (σ 0.10; docs/RESULTS.json).
 MIN_DEMO_GAIN = 0.05
+# The pushT path must reach JAX's 8-seed pushT mean minus 3σ
+# (docs/RESULTS.json: 0.7246 ± 0.0524); zero controls score −0.36 from
+# seed 0's reset (printed with the baselines below).
+MIN_PUSHT_REWARD = 0.57
+# The hopper baselines must reach JAX's 8-seed means minus 3σ
+# (docs/RESULTS_BASELINES.json: MPPI 1.297 ± 0.103, CEM 1.257 ± 0.110,
+# CMA-ES 1.519 ± 0.143). JAX has no pushT baseline rows; there each must
+# beat zero controls from its own reset.
+MIN_HOPPER_BASELINE = {"mppi": 0.99, "cem": 0.93, "cma-es": 1.09}
+BASELINES = ("mppi", "cem", "cma-es")
 SHORT_PLAN = dict(Nsample=256, Hsample=10, Ndiffuse=5)
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, and
 # device memory
@@ -185,13 +209,21 @@ class Case:
             env = envs.get_env(name, device="cuda")
             state0 = env.reset(gen)
         self.env = env
+        self.census = None
         if per_sample:
             ps = state0.pipeline_state
-            noise = 0.01 * torch.randn((env.sys.nq, N), generator=gen,
-                                       device="cuda")
+            q = ps.q[:, None] + 0.01 * torch.randn(
+                (env.sys.nq, N), generator=gen, device="cuda")
+            if name == "pushT":
+                # the pusher within 0.25 of the slider's centre: inside a
+                # bar, beside one, or clear of both
+                q[0:2] = q[2:4] + 0.5 * torch.rand(
+                    (2, N), generator=gen, device="cuda") - 0.25
             state0 = SimpleNamespace(pipeline_state=SimpleNamespace(
-                q=(ps.q[:, None] + noise).contiguous(),
+                q=q.contiguous(),
                 qd=ps.qd[:, None].expand(env.sys.nv, N).contiguous()))
+            if name == "pushT":
+                self.census = sphere_box_census(env, state0)
         self.state0 = state0
         self.Y0s = 2.0 * torch.rand((N, H, env.action_size), generator=gen,
                                     device="cuda") - 1.0
@@ -205,8 +237,11 @@ class Case:
         return ["base"] + ["need_qs"] * self.need_qs + ["demo"] * self.demo
 
     def label(self):
+        census = "" if self.census is None else (
+            " pusher (inside a bar, touching one, clear) per pair "
+            f"{self.census}")
         return (f"{self.name} N={self.N} H={self.H} per_sample="
-                f"{self.per_sample} modes={'+'.join(self.modes())}")
+                f"{self.per_sample} modes={'+'.join(self.modes())}{census}")
 
     def bytes(self):
         """What the kernel must move: U, the initial state and the demo
@@ -262,6 +297,28 @@ class Case:
         return err, ms, bound_ms, bound_by
 
 
+def sphere_box_census(env, state0):
+    """Per sphere–box pair, the samples whose sphere centre lies inside the
+    box (depth ≥ the radius), outside it within the radius (0 < depth <
+    radius) and clear of it, at the initial state; raises unless the
+    inside and the outside branch are each taken by some sample."""
+    from mbd_tpu_torch.sim import batched as BT
+
+    sys = env.sys
+    q = state0.pipeline_state.q
+    cons = BT.collide_b(sys, BT.fk_b(sys, q))
+    radius = sys.host("geom_size")[:, 0]
+    out = []
+    for (_, ga, _), con in zip(sys.contact_pairs, cons):
+        r = float(radius[ga])
+        inside = int((con.depth >= r).sum())
+        touching = int(((con.depth > 0) & (con.depth < r)).sum())
+        out.append((inside, touching, q.shape[1] - inside - touching))
+    if not (sum(c[0] for c in out) and sum(c[1] for c in out)):
+        raise AssertionError(f"sphere–box inputs miss a branch: {out}")
+    return out
+
+
 def drive_plan(torch, envs, rc, fused, mbd, name, cfg, gpu):
     """Plan ``name`` at ``cfg`` from seed 0 with the counts set to 0 just
     before and read just after; returns (env, result, state_init,
@@ -301,6 +358,61 @@ def drive_plan(torch, envs, rc, fused, mbd, name, cfg, gpu):
         raise AssertionError(f"{name}: plain engine ran {plain_calls}× on "
                              "CUDA")
     return env, res, state_init, launches
+
+
+def drive_baseline(torch, envs, rc, fused, pi, name, method, floor, gpu):
+    """``path_integral.plan`` on ``name`` with ``method`` at its
+    recommended config, seed 0, counts set to 0 just before and read just
+    after: finite outputs of the expected shapes, at least Nrefine − 1
+    kernel launches, no plain-engine call, a clean final plan of at least
+    ``floor`` (None: above zero controls from the same reset). Returns the
+    launches and the result's numbers."""
+    cfg = pi.recommended_config(name, pi.PathIntegralConfig(
+        update_method=method))
+    env = envs.get_env(name, device="cuda")
+    torch.cuda.synchronize()
+    gen = torch.Generator("cuda").manual_seed(0)
+    rc.LAUNCHES = 0
+    fused.CUDA_CALLS = 0
+    t0 = time.perf_counter()
+    state_init = env.reset(gen)
+    res = pi.plan(env, cfg, gen, state_init=state_init)
+    final_reward = float(res.final_reward)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = rc.LAUNCHES, fused.CUDA_CALLS
+    zero = torch.zeros((1, cfg.Hsample, env.action_size), device="cuda")
+    zero_reward = float(rc.rollout_rewards_cuda(env, state_init, zero)[0]
+                        .mean())
+    # no floor: strictly above zero controls
+    above = final_reward >= floor if floor is not None else \
+        final_reward > zero_reward
+    print(f"baseline {name} {method} {cfg.Nsample}/{cfg.Hsample}/"
+          f"{cfg.Nrefine} seed 0: final_reward {final_reward:.4f} (floor "
+          f"{floor}; zero controls {zero_reward:.4f}), final_diverged "
+          f"{res.final_diverged}, {launches} kernel launches, {plain_calls} "
+          f"plain-engine calls on CUDA; wall {wall:.2f} s on {gpu}",
+          flush=True)
+    T = cfg.Nrefine - 1
+    if tuple(res.mu_0ts.shape) != (T, cfg.Hsample, env.action_size) or \
+            tuple(res.rews_trace.shape) != (T,):
+        raise AssertionError(f"{name} {method}: plan output shapes")
+    if not (bool(torch.isfinite(res.mu_0ts).all())
+            and bool(torch.isfinite(res.rews_trace).all())):
+        raise AssertionError(f"{name} {method}: outputs are not finite")
+    if launches < T:
+        raise AssertionError(f"{name} {method}: {launches} launches < {T}")
+    if plain_calls != 0:
+        raise AssertionError(f"{name} {method}: plain engine ran "
+                             f"{plain_calls}× on CUDA")
+    if res.final_diverged:
+        raise AssertionError(f"{name} {method}: final plan diverged")
+    if not above:
+        raise AssertionError(f"{name} {method}: final_reward {final_reward} "
+                             f"below its floor {floor} or zero controls "
+                             f"{zero_reward}")
+    return launches, dict(final_reward=final_reward, wall_s=wall,
+                          zero_controls=zero_reward)
 
 
 def final_logpd(rc, env, res, state_init) -> float:
@@ -364,6 +476,7 @@ def main() -> int:
     from mbd_tpu_torch import envs
     from mbd_tpu_torch.ops import rollout_cuda as rc
     from mbd_tpu_torch.planners import mbd
+    from mbd_tpu_torch.planners import path_integral as pi
     from mbd_tpu_torch.rollout import fused
 
     t_start = time.perf_counter()
@@ -392,7 +505,12 @@ def main() -> int:
         "humanoidtrack": (mbd.recommended_config(
             "humanoidtrack", mbd.MBDConfig(enable_demo=True)),
             dict(min_logpd=MIN_HUMANOIDTRACK_LOGPD),
-            dict(N=2048, H=50, demo=True))}
+            dict(N=2048, H=50, demo=True)),
+        "pushT": (mbd.recommended_config("pushT"),
+                  dict(min_reward=MIN_PUSHT_REWARD), dict(N=2048, H=40))}
+    # the baselines after each of these paths, with their floors
+    baselines = {"hopper": MIN_HOPPER_BASELINE,
+                 "pushT": dict.fromkeys(BASELINES)}
 
     # 2. the plain version of every other comparison, after the operation
     # counts
@@ -408,7 +526,9 @@ def main() -> int:
         dict(name="humanoidtrack", N=N_CHECK - 1, H=H_CHECK, need_qs=True,
              demo=True),
         dict(name="humanoidtrack", N=N_CHECK, H=H_CHECK, per_sample=True,
-             demo=True)]
+             demo=True),
+        dict(name="pushT", N=N_CHECK, H=H_CHECK, per_sample=True,
+             need_qs=True)]
     keys = {(spec["name"], spec.get("demo", False)) for spec in shapes}
     keys |= {(name, shape.get("demo", False))
              for name, (_, _, shape) in paths.items()}
@@ -428,8 +548,8 @@ def main() -> int:
     cases = [plain(**spec) for spec in shapes]
 
     # 3. as each build ends: its checks, then its path
-    stats = {name: dict(max_abs_err=0.0, launches=0, modes=set())
-             for name in ENVS}
+    stats = {name: dict(max_abs_err=0.0, launches=0, modes=set(),
+                        baselines={}) for name in ENVS}
 
     def check(case):
         st = stats[case.name]
@@ -475,6 +595,9 @@ def main() -> int:
                          path=(env, state_init, res.Ybars[-1]), **shape)
             check(case)
             confirm_final_plan(torch, rc, env, res, state_init, case, **floor)
+            for method, floor in baselines.get(name, {}).items():
+                st["baselines"][method] = drive_baseline(
+                    torch, envs, rc, fused, pi, name, method, floor, gpu)
         else:
             cfg = mbd.recommended_config(name, mbd.MBDConfig(**SHORT_PLAN))
             _, _, _, st["launches"] = drive_plan(torch, envs, rc, fused, mbd,
@@ -496,6 +619,9 @@ def main() -> int:
         "replaces": "mbd_tpu/ops/rollout_pallas.py:151",
         "modes": [m for m in order if m in stats[name]["modes"]],
         "launches": stats[name]["launches"],
+        # launches, final reward and wall of each path_integral.plan
+        "baselines": {m: dict(launches=n, **res) for m, (n, res)
+                      in stats[name]["baselines"].items()},
         "max_abs_err": stats[name]["max_abs_err"],
         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
         "bound_ms": stats[name]["bound_ms"],

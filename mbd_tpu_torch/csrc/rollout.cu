@@ -23,8 +23,9 @@
 // separate elementwise kernels do.
 //
 // Joints: free, hinge and slide, in one tree or a forest of roots. Pairs:
-// plane–sphere, plane–capsule and capsule–capsule. Rewards: one branch per
-// env (kReward, model.h). The demo pass reruns the forward kinematics
+// plane–sphere, plane–capsule, capsule–capsule and sphere–box (pushT's
+// pusher against the slider's bars). Rewards: one branch per env (kReward,
+// model.h). The demo pass reruns the forward kinematics
 // without the motion subspaces (fk<false>) once per env step; the trace
 // and the score are epilogues of the serial per-thread program, not a
 // pass of their own.
@@ -53,6 +54,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+// the push reward's |Δθ|/π as a product with the float32 reciprocal
+constexpr float kInvPi = 1.0f / 3.14159265358979323846f;
 
 // fn(std::integral_constant<int, i>()) for i = Begin, Begin + Step, …
 // short of End, unrolled by the compiler's front end. Each index is a
@@ -116,6 +119,20 @@ __device__ __forceinline__ void zhat(const float* q, float* o) {
   o[0] = 2.0f * (x * z + w * y);
   o[1] = 2.0f * (y * z - w * x);
   o[2] = 1.0f - 2.0f * (x * x + y * y);
+}
+
+// the columns of R(q): col[k] is the body's local k axis in the world
+__device__ __forceinline__ void quat_cols(const float* q, float (&col)[3][3]) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  col[0][0] = 1.0f - 2.0f * (y * y + z * z);
+  col[0][1] = 2.0f * (x * y + w * z);
+  col[0][2] = 2.0f * (x * z - w * y);
+  col[1][0] = 2.0f * (x * y - w * z);
+  col[1][1] = 1.0f - 2.0f * (x * x + z * z);
+  col[1][2] = 2.0f * (y * z + w * x);
+  col[2][0] = 2.0f * (x * z + w * y);
+  col[2][1] = 2.0f * (y * z - w * x);
+  col[2][2] = 1.0f - 2.0f * (x * x + y * y);
 }
 
 // Spatial inertia about the world origin, stored as
@@ -561,7 +578,7 @@ __device__ void substep(float* q, float* qd, const float* u) {
         cdep[e] = -dist;
       }
       npts = 2;
-    } else {  // capsule–capsule
+    } else if (pair_kind(p) == kCapsuleCapsule) {
       const float r1 = pair_r1(p), hl1 = pair_hl1(p);
       const float r2 = pair_r2(p), hl2 = pair_hl2(p);
       float d1[3], d2[3], rv[3];
@@ -593,6 +610,55 @@ __device__ void substep(float* q, float* qd, const float* u) {
       for (int k = 0; k < 3; ++k)
         cpos[0][k] =
             0.5f * (c1p[k] + cn[0][k] * r1 + c2p[k] - cn[0][k] * r2);
+      npts = 1;
+    } else if (pair_kind(p) == kSphereBox) {
+      // sphere a against box b, in the box's frame (sim/batched.py
+      // collide_b): the clamped point outside the box, else the face of
+      // least penetration, ties to the lowest axis (torch.argmin). The
+      // one-hot sums keep the plain version's form, signs of zero
+      // included.
+      const float r = pair_r1(p);
+      float col[3][3], d[3], pl[3], cl[3], delta[3], fd[3], oh[3];
+      quat_cols(qb, col);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) d[k] = pa[k] - pb[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float half = pair_box_b(p, k);
+        pl[k] = dot3(col[k], d);
+        cl[k] = tmin(tmax(pl[k], -half), half);
+        delta[k] = pl[k] - cl[k];
+        fd[k] = half - fabsf(pl[k]);
+      }
+      const float dist_out = sqrtf(dot3(delta, delta));
+      const bool outside = dist_out > 1e-9f;
+      // argmin with NaN first, as torch.argmin
+      int kmin = 0;
+#pragma unroll
+      for (int k = 1; k < 3; ++k) {
+        if (fd[kmin] == fd[kmin] && (fd[k] != fd[k] || fd[k] < fd[kmin]))
+          kmin = k;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) oh[k] = (kmin == k) ? 1.0f : 0.0f;
+      const float psel = (pl[0] * oh[0] + pl[1] * oh[1]) + pl[2] * oh[2];
+      // torch.sign: +0 for ±0 and NaN
+      const float sgn = static_cast<float>((psel > 0.0f) - (psel < 0.0f));
+      const float fsel = (fd[0] * oh[0] + fd[1] * oh[1]) + fd[2] * oh[2];
+      const float dn = tmax(dist_out, 1e-9f);
+      float nl[3], surf[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        nl[k] = outside ? -delta[k] / dn : -sgn * oh[k];
+        surf[k] = outside ? cl[k] : pl[k];
+      }
+      cdep[0] = outside ? r - dist_out : r + fsel;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        cpos[0][k] = pb[k] + (col[0][k] * surf[0] + col[1][k] * surf[1] +
+                              col[2][k] * surf[2]);
+        cn[0][k] = col[0][k] * nl[0] + col[1][k] * nl[1] + col[2][k] * nl[2];
+      }
       npts = 1;
     }
 #pragma unroll
@@ -822,6 +888,14 @@ __global__ void __launch_bounds__(kThreads)
     } else if (kReward == kRewardStandup) {
       r = 1.5f - tmin(tmax(fabsf(q[2] - kZTarget), -2.0f), 1.0f) -
           0.1f * fabsf(q[0]) - 0.1f * fabsf(q[1]);
+    } else if (kReward == kRewardPush) {
+      // 1 − ((‖goal − slider‖ + |Δθ|/π) + max(‖pusher − slider‖ − 0.2, 0))
+      const float gx = q[5] - q[2], gy = q[6] - q[3];
+      const float px = q[0] - q[2], py = q[1] - q[3];
+      const float d_goal = sqrtf(gx * gx + gy * gy);
+      const float d_theta = fabsf(q[7] - q[4]) * kInvPi;
+      const float d_ps = tmax(sqrtf(px * px + py * py) - 0.2f, 0.0f);
+      r = 1.0f - ((d_goal + d_theta) + d_ps);
     } else {  // healthy velocity: forward speed + healthy − ctrl_cost·Σu²
       float cost = u[0] * u[0];
 #pragma unroll

@@ -30,6 +30,9 @@ def get_env(env_name: str, device=DEFAULT):
         from .humanoidtrack import HumanoidTrack
         return HumanoidTrack("walk" if env_name.endswith("_walk") else "jog",
                              device)
+    if env_name == "pushT":
+        from .pushT import PushT
+        return PushT(device)
     raise NotImplementedError(
         f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
         "(see ROADMAP.md, Queue 1 item 2)")

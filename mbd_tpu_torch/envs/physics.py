@@ -28,7 +28,7 @@ ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "mbd_tpu",
                          "assets")
 SNAPSHOT_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
 MODELS = ("hopper", "walker2d", "halfcheetah", "cartpole", "ant",
-          "humanoidrun", "humanoidstandup", "humanoidtrack")
+          "humanoidrun", "humanoidstandup", "humanoidtrack", "pushT")
 
 
 def asset_path(name: str) -> str:

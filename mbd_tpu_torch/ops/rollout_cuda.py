@@ -17,10 +17,11 @@ bad [N][, qs [H, nq, N]][, logpd [N]])`` out. A CPU tensor takes the plain
 version (``rollout/fused.py::rollout_outputs``, the torch engine); a CUDA
 tensor launches the kernel or raises.
 
-Coverage: free, slide and hinge joints; plane–sphere, plane–capsule and
-capsule–capsule pairs (hopper, walker2d, halfcheetah, cartpole, ant,
-humanoidrun, humanoidstandup, humanoidtrack). A model with a ball joint or
-a sphere–box pair is refused with ``NotImplementedError``.
+Coverage: free, slide and hinge joints; plane–sphere, plane–capsule,
+capsule–capsule and sphere–box pairs: every model the port serves
+(hopper, walker2d, halfcheetah, cartpole, ant, humanoidrun,
+humanoidstandup, humanoidtrack, pushT). A model with a ball joint is
+refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from ..rollout.fused import rollout_outputs
 from ..sim import batched as BT
 from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
 from ..sim.system import (FREE, HINGE, PAIR_CAPSULE_CAPSULE,
-                          PAIR_PLANE_CAPSULE, PAIR_PLANE_SPHERE, SLIDE, System)
+                          PAIR_PLANE_CAPSULE, PAIR_PLANE_SPHERE,
+                          PAIR_SPHERE_BOX, SLIDE, System)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -56,10 +58,10 @@ LAUNCHES = 0
 DEMO_LAUNCHES = 0
 
 REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2, "run": 3,
-              "standup": 4, "healthy": 5, "track": 6}
+              "standup": 4, "healthy": 5, "track": 6, "push": 7}
 # contact points per pair kind, in sim/batched.py::collide_b's order
 PAIR_ROWS = {PAIR_PLANE_SPHERE: 1, PAIR_PLANE_CAPSULE: 2,
-             PAIR_CAPSULE_CAPSULE: 1}
+             PAIR_CAPSULE_CAPSULE: 1, PAIR_SPHERE_BOX: 1}
 # Above this many constraint-row entries (NC × NV) the kernel keeps its
 # per-row loops rolled (csrc/rollout.cu, kRowUnroll); rolling changes no
 # operation's order. The line is drawn by build time: unrolled, ant (574)
@@ -77,13 +79,6 @@ def check_supported(sys: System) -> None:
             "the CUDA rollout kernel covers free, slide and hinge joints "
             f"only (joint types {sorted(kinds)}); ball joints are not on "
             "ROADMAP.md's Queue 2")
-    pair_kinds = {k for k, _, _ in sys.contact_pairs}
-    if not pair_kinds <= set(PAIR_ROWS):
-        raise NotImplementedError(
-            "the CUDA rollout kernel covers plane–sphere, plane–capsule "
-            "and capsule–capsule pairs only (pair kinds "
-            f"{sorted(pair_kinds)}); the sphere–box pair is ROADMAP.md "
-            "Queue 2 K1")
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +218,8 @@ def model_tables(sys: System, n_frames: int, reward,
     ints = dict(kGsPasses=N_GS_PASSES, kFree=FREE, kHinge=HINGE,
                 kPlaneSphere=PAIR_PLANE_SPHERE,
                 kPlaneCapsule=PAIR_PLANE_CAPSULE,
+                kCapsuleCapsule=PAIR_CAPSULE_CAPSULE,
+                kSphereBox=PAIR_SPHERE_BOX,
                 kRowUnroll=1 if nc * nv > ROLL_ROWS_ABOVE else max(nc, 1),
                 kReward=REWARD_IDS[name],
                 **{f"kReward{k.capitalize()}": v
@@ -278,6 +275,8 @@ def model_tables(sys: System, n_frames: int, reward,
         ("pair_hl2", "float", [size[b, 1] for _, _, b in cp]),
         ("pair_r12", "float", [float(size[a, 0]) + float(size[b, 0])
                                for _, a, b in cp]),
+        # geom b's box half-sizes (read by sphere–box pairs only)
+        ("pair_box_b", "float", [x for _, _, b in cp for x in size[b]], 3),
         ("pair_mu", "float", [max(fric[a, 0], fric[b, 0])
                               for _, a, b in cp]),
         ("con_sgn", "float", [x for s in con_sgn for x in s], nv),

@@ -106,20 +106,8 @@ def make_reverse_once(env, cfg: MBDConfig, state_init,
                 env, state_init, Y0s, demo=True)
         else:
             rewss, bad = rollout_rewards_cuda(env, state_init, Y0s)
-        rews = rewss.mean(dim=-1)
-        # flagged or non-finite rollouts: worst valid reward for the
-        # statistics, zero weight in the barycenter
-        valid = torch.isfinite(rews) & (bad == 0)
-        inf = torch.full_like(rews, float("inf"))
-        worst = torch.min(torch.where(valid, rews, inf))
-        worst = torch.where(torch.isfinite(worst), worst,
-                            torch.zeros_like(worst))
-        rews = torch.where(valid, rews, worst)
-        rew_mean = rews.mean()
-        rew_std = rews.std(correction=0)
-        rew_std = torch.where(rew_std < 1e-4, torch.ones_like(rew_std),
-                              rew_std)
-        logp0 = (rews - rew_mean) / rew_std / cfg.temp_sample
+        logp0, valid, rew_mean, rew_std = standardized_rewards(
+            rewss, bad, cfg.temp_sample)
 
         if cfg.enable_demo:
             # the max over every sample, flagged ones included
@@ -131,17 +119,41 @@ def make_reverse_once(env, cfg: MBDConfig, state_init,
             lstd = torch.where(lstd < 1e-4, torch.ones_like(lstd), lstd)
             logp0 = (logp0 - logp0.mean()) / lstd / cfg.temp_sample
 
-        logp0 = torch.where(valid, logp0, -inf)
-        weights = torch.softmax(logp0, dim=0)
-        weights = torch.where(valid.any(), weights,
-                              torch.full_like(weights, 1.0 / rews.shape[0]))
+        weights = masked_softmax(logp0, valid)
         Ybar = torch.einsum("n,nij->ij", weights, Y0s)
 
         score = (-Yi + torch.sqrt(abar) * Ybar) / (1.0 - abar)
         Yim1 = (Yi + (1.0 - abar) * score) / torch.sqrt(sched.alphas[i])
-        return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rews.mean()
+        return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rew_mean
 
     return reverse_once
+
+
+def standardized_rewards(rewss: torch.Tensor, bad: torch.Tensor,
+                         temp: float):
+    """Each rollout's mean per-step reward (rewss [N, H]), standardized and
+    divided by ``temp``: (logp₀ [N], valid [N], mean, std). Flagged or
+    non-finite rollouts (not ``valid``) take the worst valid reward for
+    the statistics; a std under 1e-4 counts as 1."""
+    rews = rewss.mean(dim=-1)
+    valid = torch.isfinite(rews) & (bad == 0)
+    inf = torch.full_like(rews, float("inf"))
+    worst = torch.min(torch.where(valid, rews, inf))
+    worst = torch.where(torch.isfinite(worst), worst, torch.zeros_like(worst))
+    rews = torch.where(valid, rews, worst)
+    rew_mean = rews.mean()
+    rew_std = rews.std(correction=0)
+    rew_std = torch.where(rew_std < 1e-4, torch.ones_like(rew_std), rew_std)
+    return (rews - rew_mean) / rew_std / temp, valid, rew_mean, rew_std
+
+
+def masked_softmax(logp0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Softmax weights with zero weight for the samples not ``valid``;
+    uniform weights when none is."""
+    logp0 = torch.where(valid, logp0, torch.full_like(logp0, -float("inf")))
+    weights = torch.softmax(logp0, dim=0)
+    return torch.where(valid.any(), weights,
+                       torch.full_like(weights, 1.0 / logp0.shape[0]))
 
 
 def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
@@ -181,23 +193,28 @@ def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
             progress_fn(done, float(rew))
     Ybars = torch.stack(Ybars)
     rews_trace = torch.stack(rews_trace)
-
-    # final evaluation through the same rollout; when the final mean's own
-    # rollout is flagged, fall back to the best clean iterate
-    final_rews, final_bad = rollout_rewards_cuda(env, state_init, Ybars[-1:])
-    final_reward = final_rews[0].mean()
-    final_diverged = False
-    if bool(final_bad[0]):
-        cand_rews, cand_bad = rollout_rewards_cuda(env, state_init, Ybars)
-        cand = cand_rews.mean(dim=-1)
-        cand = torch.where((cand_bad == 0) & torch.isfinite(cand), cand,
-                           torch.full_like(cand, -float("inf")))
-        best = int(torch.argmax(cand))
-        if bool(torch.isfinite(cand[best])):
-            Ybars[-1] = Ybars[best]
-            final_reward = cand[best]
-        else:
-            final_diverged = True
+    final_reward, final_diverged = evaluate_final(env, state_init, Ybars)
     return MBDResult(Ybars=Ybars, rews_trace=rews_trace,
                      final_reward=final_reward,
                      final_diverged=final_diverged)
+
+
+def evaluate_final(env, state_init, plans: torch.Tensor):
+    """The final plan ``plans[-1]``'s mean reward through the same rollout,
+    and whether it is flagged. When its own rollout is flagged, the best
+    clean iterate of ``plans`` [T, H, nu] takes its place (in place) and
+    its reward is returned; with no clean iterate, the flagged reward and
+    True. The first wait on the device of a plan."""
+    final_rews, final_bad = rollout_rewards_cuda(env, state_init, plans[-1:])
+    final_reward = final_rews[0].mean()
+    if not bool(final_bad[0]):
+        return final_reward, False
+    cand_rews, cand_bad = rollout_rewards_cuda(env, state_init, plans)
+    cand = cand_rews.mean(dim=-1)
+    cand = torch.where((cand_bad == 0) & torch.isfinite(cand), cand,
+                       torch.full_like(cand, -float("inf")))
+    best = int(torch.argmax(cand))
+    if not bool(torch.isfinite(cand[best])):
+        return final_reward, True
+    plans[-1] = plans[best]
+    return cand[best], False

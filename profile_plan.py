@@ -5,7 +5,7 @@
 
 Runs ``mbd.plan`` on the env at its ``recommended_config`` (hopper:
 2048 / 50 / 100; humanoidrun: 8192 / 50 / 300; humanoidtrack: 2048 / 50 /
-100 with its demo) twice on the first CUDA
+100 with its demo; pushT: 2048 / 40 / 200) twice on the first CUDA
 card: once to build the kernel and warm up, once under
 ``torch.profiler``. Prints the card's name and
 power limit, the traced plan's wall time, the union of the device's

@@ -35,13 +35,19 @@ def card():
 
 
 def _state(env, gen, N, per_sample):
-    """The env's reset state, or per sample with 0.01 noise on q."""
+    """The env's reset state, or per sample with 0.01 noise on q; for
+    pushT, per sample with the pusher within 0.25 of the slider's centre,
+    in, beside or clear of its bars, so the sphere–box contacts are
+    live."""
     state0 = env.reset(gen)
     if not per_sample:
         return state0
     ps = state0.pipeline_state
     q = ps.q[:, None] + 0.01 * torch.randn((env.sys.nq, N), generator=gen,
                                            device=ps.q.device)
+    if env.sys.nq == 8:                         # pushT
+        q[0:2] = q[2:4] + 0.5 * torch.rand(
+            (2, N), generator=gen, device=ps.q.device) - 0.25
     return SimpleNamespace(pipeline_state=SimpleNamespace(
         q=q.contiguous(),
         qd=ps.qd[:, None].expand(env.sys.nv, N).contiguous()))
@@ -54,7 +60,8 @@ def _state(env, gen, N, per_sample):
     ("hopper", 257, False), ("walker2d", 64, True), ("ant", 256, False),
     ("humanoidrun", 256, False), ("humanoidstandup", 256, False),
     ("humanoidrun", 64, True), ("humanoidtrack", 256, False),
-    ("humanoidtrack", 64, True)])
+    ("humanoidtrack", 64, True), ("pushT", 256, False),
+    ("pushT", 256, True)])
 def test_kernel_matches_plain_version(card, name, N, per_sample):
     env = envs.get_env(name, device=card)
     gen = torch.Generator(card).manual_seed(0)
@@ -90,7 +97,8 @@ def test_kernel_rejects_bad_inputs(card):
     ("hopper", 256, True, False, False),
     ("humanoidtrack", 255, True, True, False),
     ("humanoidtrack", 64, False, True, True),
-    ("humanoidtrack_walk", 128, False, True, False)])
+    ("humanoidtrack_walk", 128, False, True, False),
+    ("pushT", 256, True, False, True)])
 def test_kernel_trace_and_demo_match_plain_version(card, name, N, need_qs,
                                                    demo, per_sample):
     """need_qs: the position trace equals the plain version's; demo: the

@@ -29,10 +29,22 @@ the demo, the forward kinematics of the moved hinges. Those cases give
 the plain engine sqrt, sin and cos taken in double and rounded once
 (``rounded_math``), and then hold the trace bit for bit.
 
+pushT's sphere–box pairs take their own inputs (``_pusht_inputs``): the
+pusher's centre inside a bar (each bar, with the x and the y face the
+nearest in some samples), outside one within the sphere's radius, and
+clear of both; the test checks that the inside and the outside branch
+were both taken. The pusher and the slider sit at one height, so the z
+face never wins in-plane (it ties the y face of the long bar and loses,
+as torch.argmin takes the lowest index); a case with the pusher's geom
+raised by 0.03 makes it the nearest. That case, and a rotated slider,
+whose angle's sine and cosine the substep takes, run under
+``rounded_math`` and are held bit for bit.
+
 Skips where g++ is missing.
 """
 
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -118,15 +130,84 @@ def _inputs(sys, gen):
     return q.contiguous(), qd.contiguous()
 
 
-def _run(name, out_dir, need_qs=False, demo=False):
+# pushT: the slider's bars as (centre in the slider's frame, half-sizes)
+# in the model's geom order, and the pusher's radius
+PUSHT_BARS = (((0.0, 0.0), (0.15, 0.05)), ((-0.1, 0.0), (0.05, 0.15)))
+PUSHER_R = 0.05
+
+
+def _pusht_inputs(sys, gen, rotate):
+    """Per-sample q0/qd0 for pushT (module docstring), cycling over four
+    placements of the pusher in the slider's frame: inside the long bar,
+    inside the cross bar, within the radius outside the long bar's end or
+    side, and clear of the T; unrotated, the last two samples tie two
+    faces exactly."""
+    def u(lo, hi):
+        return torch.rand(N, generator=gen) * (hi - lo) + lo
+
+    kind = torch.arange(N) % 4
+    side = torch.rand(N, generator=gen) < 0.5
+    gap = u(0.002, 0.045)
+    local = torch.stack([
+        torch.where(kind == 0, u(-0.145, 0.145), torch.where(
+            kind == 1, u(-0.145, -0.055), torch.where(
+                kind == 2, torch.where(side, 0.15 + gap, u(-0.05, 0.14)),
+                u(0.3, 0.5)))),
+        torch.where(kind == 0, u(-0.045, 0.045), torch.where(
+            kind == 1, u(-0.145, 0.145), torch.where(
+                kind == 2, torch.where(side, u(-0.045, 0.045), 0.05 + gap),
+                u(-0.5, 0.5))))])
+    q = sys.init_q[:, None].repeat(1, N).clone()
+    q[2:4] = u(-0.3, 0.3)[None].repeat(2, 1) * torch.tensor([[1.0], [-1.0]])
+    q[4] = u(-math.pi, math.pi) if rotate else 0.0
+    c, s = torch.cos(q[4].double()), torch.sin(q[4].double())
+    q[0] = q[2] + (c * local[0] - s * local[1]).float()
+    q[1] = q[3] + (s * local[0] + c * local[1]).float()
+    q[5:7] = u(-0.5, 0.5)[None].repeat(2, 1)
+    if not rotate:
+        # two exact ties of the long bar's x and y faces (both 1/32 deep,
+        # the slider at the origin): the x face must win, as in argmin
+        tie = torch.tensor([0.15, 0.05]) - 1.0 / 32
+        q[:5, -2:] = 0.0
+        q[:2, -2] = tie
+        q[:2, -1] = -tie
+    qd = torch.randn((sys.nv, N), generator=gen) * 0.5
+    return q.contiguous(), qd.contiguous()
+
+
+def _pusht_branches(q, lift=0.0):
+    """Per sample and bar, whether the pusher's centre lies inside the bar
+    and, if so, the axis of its nearest face (0, 1 or 2, ties to the lowest,
+    as torch.argmin), or −1 outside; and whether a pair outside is within
+    the pusher's radius."""
+    q = q.double()
+    c, s = torch.cos(q[4]), torch.sin(q[4])
+    dx, dy = q[0] - q[2], q[1] - q[3]
+    faces, touching = [], []
+    for (ox, oy), (hx, hy) in PUSHT_BARS:
+        lx, ly = c * dx + s * dy - ox, -s * dx + c * dy - oy
+        pl = torch.stack([lx, ly, torch.full_like(lx, lift)])
+        half = torch.tensor([hx, hy, 0.05], dtype=q.dtype)[:, None]
+        inside = (pl.abs() <= half).all(0)
+        faces.append(torch.where(inside, torch.argmin(half - pl.abs(), 0),
+                                 -1))
+        out = (pl.abs() - half).clamp_min(0).norm(dim=0)
+        touching.append(~inside & (out < PUSHER_R))
+    return torch.stack(faces), torch.stack(touching)
+
+
+def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None):
     """One substep of the kernel source and of the plain version from the
     same inputs: (kernel outputs, plain outputs), each (rews [N, 1],
-    bad[, qs][, logpd])."""
+    bad[, qs][, logpd]). ``sys`` replaces the env's model; ``inputs(sys,
+    gen)`` makes q0/qd0 (default ``_inputs``)."""
     env = envs.get_env(name, device="cpu")
     env.n_frames = 1
+    if sys is not None:
+        env.sys = sys
     lib = _cpu_kernel(env, out_dir)
     gen = torch.Generator().manual_seed(0)
-    q0, qd0 = _inputs(env.sys, gen)
+    q0, qd0 = (inputs or _inputs)(env.sys, gen)
     Y0s = 2 * torch.rand((N, 1, env.action_size), generator=gen) - 1
     U = Y0s.permute(1, 2, 0).contiguous()
     rews, bad = torch.empty((1, N)), torch.empty(N)
@@ -146,14 +227,52 @@ def _run(name, out_dir, need_qs=False, demo=False):
     assert torch.isfinite(rews).all()
     assert torch.equal(kernel[1], plain[1])
     assert float((kernel[0] - plain[0]).abs().max()) <= ATOL
-    return kernel, plain
+    return kernel, plain, q0
 
 
 @pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
                                   "cartpole", "ant", "humanoidrun",
-                                  "humanoidstandup", "humanoidtrack"])
+                                  "humanoidstandup", "humanoidtrack",
+                                  "pushT"])
 def test_kernel_source_matches_plain_version(name, tmp_path):
-    _run(name, str(tmp_path))
+    if name != "pushT":
+        _run(name, str(tmp_path))
+        return
+    _, _, q0 = _run(name, str(tmp_path),
+                    inputs=lambda sys, gen: _pusht_inputs(sys, gen, False))
+    faces, touching = _pusht_branches(q0)
+    assert set(faces.unique().tolist()) == {-1, 0, 1}   # both branches
+    assert bool(touching.any())
+
+
+def test_kernel_source_sphere_box_z_face(tmp_path, rounded_math):
+    """The pusher's geom raised by 0.03 (pl_z = 0.03): the z face is the
+    nearest for some samples inside a bar. The pusher has no z slide, so a
+    z-face contact's row has a near-zero effective inverse mass and sends
+    those samples off at ~1e7; the rewards are held bit for bit, so their
+    size does not loosen the check."""
+    sys = envs.get_env("pushT", device="cpu").sys
+    gpos = sys.geom_pos.clone()
+    gpos[1, 2] = 0.03                      # geom 1: the pusher
+    kernel, plain, q0 = _run(
+        "pushT", str(tmp_path), sys=sys.replace(geom_pos=gpos),
+        inputs=lambda sys, gen: _pusht_inputs(sys, gen, False))
+    assert torch.equal(kernel[0], plain[0])
+    faces, _ = _pusht_branches(q0, lift=0.03)
+    assert {0, 1, 2} <= set(faces.unique().tolist())
+
+
+def test_kernel_source_sphere_box_rotated(tmp_path, rounded_math):
+    """pushT with the slider turned by an angle in (−π, π) per sample: the
+    box frame's columns are live, and the trace is held bit for bit."""
+    kernel, plain, q0 = _run(
+        "pushT", str(tmp_path), need_qs=True,
+        inputs=lambda sys, gen: _pusht_inputs(sys, gen, True))
+    assert torch.equal(kernel[0], plain[0])
+    assert torch.equal(kernel[2], plain[2])
+    faces, touching = _pusht_branches(q0)
+    assert set(faces.unique().tolist()) == {-1, 0, 1}
+    assert bool(touching.any())
 
 
 @pytest.fixture
@@ -175,7 +294,7 @@ def rounded_math(monkeypatch):
 def test_kernel_source_trace_is_plain_trace(name, tmp_path, rounded_math):
     """need_qs: the kernel's position trace is the plain version's, bit
     for bit."""
-    kernel, plain = _run(name, str(tmp_path), need_qs=True)
+    kernel, plain, _ = _run(name, str(tmp_path), need_qs=True)
     assert torch.equal(kernel[2], plain[2])
 
 
@@ -184,8 +303,8 @@ def test_kernel_source_demo_logpd(tmp_path, rounded_math):
     ``traj_xref_logpd_qs`` of the plain trace, at atol 2e-6 (the order of
     the sums differs: a left-to-right running sum in the kernel,
     ``linalg.norm`` and ``mean`` in torch)."""
-    kernel, plain = _run("humanoidtrack", str(tmp_path), need_qs=True,
-                         demo=True)
+    kernel, plain, _ = _run("humanoidtrack", str(tmp_path), need_qs=True,
+                            demo=True)
     assert torch.equal(kernel[2], plain[2])
     assert float((kernel[3] - plain[3]).abs().max()) <= 2e-6
     assert float(kernel[3].std()) > 0

@@ -20,7 +20,13 @@ Tolerances:
   differ by 2.7e-5 in qd, and a contact that switches on a few substeps
   apart turns that into per-step reward gaps of up to 2.5e-2 on walker2d
   and 1.0e-3 on halfcheetah; the per-sample means stayed within 2.5e-3
-  over seeds 1 to 3.
+  over seeds 1 to 3;
+* pushT: every step's reward to atol 1e-4, as hopper. Each sample's
+  pusher starts beside, inside or clear of the slider's bars
+  (``_pusht_q0``), and 35 to 54 (sample, step) pairs of the ten steps have
+  a contact in the pusher, yet the largest per-step gap over seeds 1 to 3
+  was 7.4e-5 against jitted JAX and 4.8e-7 against the TPU kernel in
+  interpret mode (its own test below).
 
 The engine's arithmetic itself is held at 1e-5 per substep in
 tests/test_torch_engine.py. The humanoids' rollouts are not compiled by
@@ -44,6 +50,7 @@ import pytest
 import torch
 
 from mbd_tpu import envs as jax_envs
+from mbd_tpu.ops.rollout_pallas import rollout_rewards_pallas
 from mbd_tpu.rollout.fused import rollout_rewards as jax_rollout_rewards
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.ops import rollout_cuda
@@ -60,13 +67,24 @@ def _state(q, qd):
     return SimpleNamespace(pipeline_state=SimpleNamespace(q=q, qd=qd))
 
 
+def _pusht_q0(q, rng, N):
+    """pushT's reset q per sample, with the pusher within 0.25 of the
+    slider's centre in x and y: in, beside or clear of its bars."""
+    q = np.repeat(q[:, None], N, axis=1)
+    q[0:2] = q[2:4] + rng.uniform(-0.25, 0.25, (2, N))
+    return q.astype(np.float32)
+
+
 def _case(name, N, H, per_sample=False, seed=1):
     """(JAX env, port env, JAX state, port state, Y0s) from one seed."""
     jenv, tenv = jax_envs.get_env(name), envs.get_env(name, device="cpu")
     js = jenv.reset(jax.random.PRNGKey(0)).pipeline_state
     q, qd = np.asarray(js.q), np.asarray(js.qd)
     rng = np.random.default_rng(seed)
-    if per_sample:
+    if name == "pushT":
+        q = _pusht_q0(q, rng, N)
+        qd = np.repeat(qd[:, None], N, axis=1)
+    elif per_sample:
         q = (q[:, None] + 0.01 * rng.normal(size=(q.shape[0], N))
              ).astype(np.float32)
         qd = np.repeat(qd[:, None], N, axis=1)
@@ -93,9 +111,27 @@ def _compare(name, N, H, per_sample=False):
 
 
 @pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
-                                  "cartpole", "ant"])
+                                  "cartpole", "ant", "pushT"])
 def test_rollout_rewards_match_jax(name):
     _compare(name, N=8, H=10)
+
+
+def test_plain_version_matches_tpu_kernel_pusht():
+    """The port's plain version against the TPU kernel itself
+    (``rollout_rewards_pallas`` in interpret mode) on pushT, from per-sample
+    initial states with live sphere–box contacts, at N = 8, H = 6: the
+    first step to 1e-5, every step to 1e-4 (module docstring), flags
+    equal."""
+    jenv, tenv, jstate, tstate, Y0s = _case("pushT", N=8, H=6)
+    r_j, bad_j = rollout_rewards_pallas(jenv, jstate, Y0s, b_tile=8,
+                                        interpret=True)
+    r_t, bad_t = rollout_cuda.rollout_rewards_cuda(tenv, tstate,
+                                                   torch.from_numpy(Y0s))
+    r_j, r_t = np.asarray(r_j), r_t.numpy()
+    assert r_t.shape == r_j.shape == (8, 6)
+    np.testing.assert_allclose(r_j[:, 0], r_t[:, 0], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(r_j, r_t, rtol=0, atol=STEP_ATOL)
+    np.testing.assert_array_equal(np.asarray(bad_j), bad_t.numpy())
 
 
 def test_rollout_rewards_ragged_batch():
@@ -175,6 +211,32 @@ def test_kernel_accepts_free_roots_and_plane_sphere(name, ncon, reward):
     assert ("sensor_qadr", "int", [2]) in t["tables"]   # root z = q[2]
 
 
+def test_model_header_pusht():
+    """pushT in the kernel: two sphere–box pairs (the pusher, geom 1,
+    against the slider's bars, geoms 2 and 3), one row each, then 6
+    limited slides: 14 rows, unrolled; the box half-sizes in
+    ``pair_box_b``, the pusher's radius in ``pair_r1``, the push reward."""
+    env = envs.get_env("pushT", device="cpu")
+    rollout_cuda.check_supported(env.sys)
+    assert env.sys.contact_pairs == ((3, 1, 2), (3, 1, 3))
+    t = rollout_cuda.model_tables(env.sys, env.n_frames, env.kernel_reward)
+    assert t["sizes"] == dict(NQ=8, NV=8, NU=2, NB=4, NJ=8, NFRAMES=5,
+                              NPAIR=2, NCON=2, NLIMJ=6, NC=14, NSPRING=0,
+                              NSENSOR=0, NTRACK=0)
+    tables = {spec[0]: spec[2] for spec in t["tables"]}
+    assert tables["pair_kind"] == [t["ints"]["kSphereBox"]] * 2
+    np.testing.assert_array_equal(
+        np.asarray(tables["pair_box_b"], np.float32),
+        np.float32([0.15, 0.05, 0.05, 0.05, 0.15, 0.05]))
+    np.testing.assert_array_equal(np.asarray(tables["pair_r1"], np.float32),
+                                  np.float32([0.05, 0.05]))
+    assert t["ints"]["kRowUnroll"] == 14
+    assert t["ints"]["kReward"] == rollout_cuda.REWARD_IDS["push"]
+    header = rollout_cuda.model_header(env)
+    assert "#define NC 14\n" in header
+    assert "constexpr int kReward = 7;" in header
+
+
 def test_humanoidtrack_header_tracks_bodies():
     """The demo's tracked bodies are in the header (torso, thighs, shins);
     the clip is not, so jog and walk share one build."""
@@ -222,17 +284,15 @@ def test_cuda_wrapper_refuses_demo_it_cannot_score():
             torch.zeros(2, 51, track.action_size), demo=True)
 
 
-@pytest.mark.parametrize("scene", ["ball", "pushT"])
+@pytest.mark.parametrize("scene", ["ball"])
 def test_kernel_refuses_free_joints_and_sphere_box(scene):
     """What the kernel does not cover is refused: a ball joint (on ant's
-    root) and pushT's sphere–box pair."""
+    root). pushT's sphere–box pair is covered (test_model_header_pusht)."""
     from mbd_tpu.envs.physics import asset_path
     from mbd_tpu_torch.sim.system import BALL, load_mjcf
 
-    sys = load_mjcf(asset_path("ant.xml" if scene == "ball"
-                               else f"{scene}.xml"), device="cpu")
-    if scene == "ball":
-        sys = sys.replace(jnt_type=(BALL,) + sys.jnt_type[1:])
+    sys = load_mjcf(asset_path("ant.xml"), device="cpu")
+    sys = sys.replace(jnt_type=(BALL,) + sys.jnt_type[1:])
     env = SimpleNamespace(sys=sys, n_frames=5, kernel_reward=("progress", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rollout_cuda.model_header(env)

@@ -60,7 +60,7 @@ def test_snapshot_matches_jax(name):
 
 def test_get_env_refuses_unported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        envs.get_env("pushT")
+        envs.get_env("car2d")
 
 
 def test_get_env_defaults_to_the_card():
@@ -113,7 +113,7 @@ def test_humanoidtrack_model_is_a_forest():
     ("hopper", 20, 0.002), ("walker2d", 20, 0.002),
     ("halfcheetah", 5, 0.01), ("cartpole", 4, 0.005), ("ant", 5, 0.01),
     ("humanoidrun", 7, 0.006), ("humanoidstandup", 7, 0.006),
-    ("humanoidtrack", 5, 0.006)])
+    ("humanoidtrack", 5, 0.006), ("pushT", 5, 0.01)])
 def test_env_sizes_match_jax(name, n_frames, dt):
     from mbd_tpu import envs as jax_envs
 
