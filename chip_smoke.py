@@ -7,8 +7,10 @@ Phases, each of which raises on failure (exit code 1):
 
 1. the card's name and power limit; the rollout kernel
    (``csrc/rollout.cu``) starts to build for every model it serves, one
-   nvcc each, all at once in the background (6–41 s each on an H100
-   host's 8 cores);
+   nvcc each, all at once in the background; as each build ends, its
+   layout (lanes per sample G, shared bytes per block,
+   registers and local bytes per thread, resident warps per SM, SMs in
+   use);
 2. while they build, the operations per sample and env step of the plain
    version (the torch engine), counted on the CPU for each kernel's bound,
    then the plain version on the card on the inputs of every comparison
@@ -566,14 +568,18 @@ def main() -> int:
     for future in as_completed(builds):
         name = builds[future]
         built = future.result()
-        a = built.attrs()
         st = stats[name]
-        st.update(nvcc_s=built.seconds, **a)
-        print(f"build {name}: nvcc {built.seconds:.1f} s; {a['regs']} "
-              f"registers, {a['local_bytes']} B local per thread, "
-              f"{a['blocks_per_sm']} blocks of {a['threads_per_block']} per "
-              f"SM; ptxas: {ptxas_summary(built.ptxas)} ({elapsed()})",
-              flush=True)
+        # the layout at the shape the model is timed at
+        N_timed = paths[name][2]["N"] if name in paths else N_CHECK
+        st.update(nvcc_s=built.seconds, **built.attrs(N_timed))
+        print(f"build {name}: nvcc {built.seconds:.1f} s; ptxas: "
+              f"{ptxas_summary(built.ptxas)} ({elapsed()})", flush=True)
+        print(f"  layout {name} G={st['G']}: {st['threads_per_block']} "
+              f"threads and {st['shared_bytes']} B of shared memory per "
+              f"block, {st['regs']} registers and {st['local_bytes']} B "
+              f"local per thread, {st['blocks_per_sm']} blocks "
+              f"({st['warps_per_sm']} warps) per SM, {st['sms_used']} SMs "
+              f"at N={N_timed}", flush=True)
         for case in cases:
             if case.name == name:
                 check(case)
@@ -622,6 +628,10 @@ def main() -> int:
         # launches, final reward and wall of each path_integral.plan
         "baselines": {m: dict(launches=n, **res) for m, (n, res)
                       in stats[name]["baselines"].items()},
+        # lanes per sample, shared bytes per block and resident warps per
+        # SM of the launch at the timed shape
+        "G": stats[name]["G"], "shared_bytes": stats[name]["shared_bytes"],
+        "warps_per_sm": stats[name]["warps_per_sm"],
         "max_abs_err": stats[name]["max_abs_err"],
         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
         "bound_ms": stats[name]["bound_ms"],

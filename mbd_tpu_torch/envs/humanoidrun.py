@@ -16,6 +16,9 @@ class HumanoidRun(PhysicsEnv):
     model = "humanoidrun"
     z_target = 1.3          # torso height the reward centres on
     reset_noise = 0.01
+    # its plans run at N = 8192, where 16 lanes a sample beat 8 on an H100
+    # (at N = 2048, 8 did; PERF.md, PR 5)
+    kernel_group = 16
 
     def __init__(self, device=DEFAULT):
         super().__init__(load(self.model, device), n_frames=7)

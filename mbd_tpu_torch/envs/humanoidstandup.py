@@ -13,6 +13,7 @@ from .humanoidrun import HumanoidRun
 
 class HumanoidStandup(HumanoidRun):
     model = "humanoidstandup"
+    kernel_group = 8        # its plans run at N = 2048 (PhysicsEnv)
 
     @property
     def kernel_reward(self):

@@ -68,6 +68,11 @@ def make_state(sys: System, q: torch.Tensor,
 
 
 class PhysicsEnv(Env):
+    # lanes per sample of the CUDA rollout kernel (ops/rollout_cuda.py):
+    # 8 was the fastest at every planning path's shape on an H100 but
+    # humanoidrun's (PERF.md, PR 5)
+    kernel_group = 8
+
     def __init__(self, sys: System, n_frames: int):
         self.sys = sys
         self.n_frames = n_frames

@@ -6,10 +6,11 @@ validity flag, from a shared or per-sample initial state, and on request
 the position trace (``need_qs``) and the demo log-density (``demo``).
 The kernel body is written once by hand (``csrc/rollout.cu``); each model
 arrives as a small generated header (``model_header``) of sizes and
-``constexpr`` tables, so the kernel's loops over the topology unroll at
-compile time. The library is built with ``nvcc`` at first use, into
-``build/rollout/<hash>/`` beside the package, cached by a hash of the
-sources and the header, and bound with ``ctypes``.
+tables, so the kernel's loops over the topology unroll at compile time.
+A group of G lanes serves one sample, G fixed per env in the header
+(``env.kernel_group``). The library is built with ``nvcc`` at first use,
+into ``build/rollout/<hash>/`` beside the package, cached by a hash of
+the sources and the header, and bound with ``ctypes``.
 
 ``rollout_rewards_cuda`` keeps the signature and layout of
 ``rollout_rewards_pallas``: ``Y0s [N, H, nu]`` in, ``(rews [N, H],
@@ -62,13 +63,19 @@ REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2, "run": 3,
 # contact points per pair kind, in sim/batched.py::collide_b's order
 PAIR_ROWS = {PAIR_PLANE_SPHERE: 1, PAIR_PLANE_CAPSULE: 2,
              PAIR_CAPSULE_CAPSULE: 1, PAIR_SPHERE_BOX: 1}
-# Above this many constraint-row entries (NC × NV) the kernel keeps its
-# per-row loops rolled (csrc/rollout.cu, kRowUnroll); rolling changes no
-# operation's order. The line is drawn by build time: unrolled, ant (574)
-# and humanoidrun (828) took 584 s and 502 s of nvcc on an H100 machine,
-# rolled 74 s and 332 s. Below it, the unrolled kernel ran faster on
-# walker2d, halfcheetah and cartpole, the rolled one on hopper (PERF.md).
-ROLL_ROWS_ABOVE = 300
+# The tables the kernel reads at a run-time index (``t_<name>`` in
+# csrc/rollout.cu), copied into shared memory per block.
+RUNTIME_TABLES = frozenset((
+    "body_parent", "body_ipos", "body_iquat", "body_mass", "body_inertia",
+    "gravity", "dof_body", "armature", "damping", "h_damping", "dof_limj",
+    "n_prev", "prev", "n_anc", "anc", "n_dact", "dact", "n_dspring",
+    "dspring", "act_lo", "act_hi", "act_gear", "spring_qadr", "spring_k",
+    "spring_q0", "limj_qadr", "limj_dadr", "limj_lo", "limj_hi",
+    "limj_dlim", "mp_i", "mp_j", "fac_start", "fac_i", "fac_j",
+    "pair_kind", "pair_start", "pair_body_a", "pair_body_b", "pair_pos_a",
+    "pair_quat_a", "pair_pos_b", "pair_quat_b", "pair_r1", "pair_hl1",
+    "pair_r2", "pair_hl2", "pair_r12", "pair_box_b", "pair_mu", "con_sgn",
+    "hinge_qadr", "hinge_q0", "hinge_axis"))
 
 
 def check_supported(sys: System) -> None:
@@ -104,6 +111,43 @@ def _table(name: str, kind: str, values, stride: int = 0) -> str:
     return (f"__host__ __device__ constexpr {kind} {name}({args}) {{\n"
             f"  constexpr {kind} v[] = {{{body}}};\n"
             f"  return v[{idx}];\n}}\n")
+
+
+def _int_type(values) -> str:
+    """The narrowest signed type that holds every value."""
+    lo, hi = min(values, default=0), max(values, default=0)
+    if -128 <= lo and hi <= 127:
+        return "signed char"
+    if -32768 <= lo and hi <= 32767:
+        return "short"
+    return "int"
+
+
+def _runtime_tables(specs) -> list:
+    """The tables a lane reads at a run-time index (a body, dof, row or
+    task of its own), as one struct ``Tables``: its initial value
+    ``kTablesInit`` in device memory, which each block copies into its
+    shared ``tables`` at launch, and an accessor ``t_<name>`` over the
+    copy."""
+    fields, inits, accessors = [], [], []
+    for spec in specs:
+        name, kind, values = spec[:3]
+        if name not in RUNTIME_TABLES:
+            continue
+        stride = spec[3] if len(spec) > 3 else 0
+        vals = list(values) or [0]
+        ctype = _int_type(vals) if kind == "int" else "float"
+        fields.append(f"  {ctype} {name}[{len(vals)}];")
+        inits.append("{" + ", ".join(_lit(v, kind) for v in vals) + "}")
+        if stride:
+            args, idx = "int i, int k", f"{stride} * i + k"
+        else:
+            args, idx = "int i", "i"
+        accessors.append(f"__device__ __forceinline__ {kind} t_{name}("
+                         f"{args}) {{ return tables.{name}[{idx}]; }}")
+    return (["struct alignas(16) Tables {"] + fields + ["};",
+            "__device__ const Tables kTablesInit = {" + ", ".join(inits)
+            + "};", "__shared__ Tables tables;"] + accessors)
 
 
 def check_demo(env, H: int) -> None:
@@ -171,13 +215,34 @@ def model_tables(sys: System, n_frames: int, reward,
                sys.dof_bodyid[i] == sys.dof_bodyid[j]] for i in range(nv)],
         child=[[c for c in tc.children[b] if c > b]
                for b in range(sys.nbody)])
-    list_tables = [spec for key, lst in lists.items()
-                   for spec in _lists(key, lst)]
-
     # limits and springs act on slide and hinge joints only (substep_b)
     scalar = [j for j in range(nj) if sys.jnt_type[j] in (SLIDE, HINGE)]
     limj = [j for j in scalar if sys.jnt_limited[j]]
     springs = [j for j in scalar if stiff[j] != 0.0]
+    act_dadr = [sys.jnt_dofadr[j] for j in sys.actuator_jntid]
+    # per dof, its actuators and springs in the order substep_b adds them
+    lists.update(
+        dact=[[a for a, d in enumerate(act_dadr) if d == i]
+              for i in range(nv)],
+        dspring=[[s for s, j in enumerate(springs)
+                  if sys.jnt_dofadr[j] == i] for i in range(nv)])
+    list_tables = [spec for key, lst in lists.items()
+                   for spec in _lists(key, lst)]
+    hinges = [j for j in range(nj) if sys.jnt_type[j] == HINGE]
+    init_q, jaxis = sys.host("init_q"), sys.host("jnt_axis")
+    dof_limj = [-1] * nv
+    for l, j in enumerate(limj):
+        dof_limj[sys.jnt_dofadr[j]] = l
+    # the mass-matrix entries, one lane each: (i, j) for j in mpair(i)
+    mp = [(i, j) for i in range(nv) for j in lists["mpair"][i]]
+    # the LᵀDL factor's updates of column k (descending k, a barrier
+    # between columns): for i in anc(k), F[i][i] and F[i][j], j in anc(i)
+    fac, fac_start = [], []
+    for k in range(nv):
+        fac_start.append(len(fac))
+        for i in anc[k]:
+            fac += [(i, i)] + [(i, j) for j in anc[i]]
+    fac_start.append(len(fac))
 
     pair_rows, con_sgn = [], []
     for kind, ga, gb in sys.contact_pairs:
@@ -220,7 +285,8 @@ def model_tables(sys: System, n_frames: int, reward,
                 kPlaneCapsule=PAIR_PLANE_CAPSULE,
                 kCapsuleCapsule=PAIR_CAPSULE_CAPSULE,
                 kSphereBox=PAIR_SPHERE_BOX,
-                kRowUnroll=1 if nc * nv > ROLL_ROWS_ABOVE else max(nc, 1),
+                kNMP=len(mp), kNFac=len(fac),
+                kNH=len(hinges),
                 kReward=REWARD_IDS[name],
                 **{f"kReward{k.capitalize()}": v
                    for k, v in REWARD_IDS.items()})
@@ -244,7 +310,7 @@ def model_tables(sys: System, n_frames: int, reward,
         ("armature", "float", sys.host("dof_armature")),
         ("damping", "float", damping),
         ("h_damping", "float", [h * float(d) for d in damping]),
-        ("act_dadr", "int", [sys.jnt_dofadr[j] for j in sys.actuator_jntid]),
+        ("act_dadr", "int", act_dadr),
         ("act_lo", "float", crange[:, 0]),
         ("act_hi", "float", crange[:, 1]),
         ("act_gear", "float", gear),
@@ -283,30 +349,49 @@ def model_tables(sys: System, n_frames: int, reward,
         ("sensor_qadr", "int", [qa for qa, _ in sensors]),
         ("sensor_off", "float", [off for _, off in sensors]),
         ("track_body", "int", track),
+        ("dof_limj", "int", dof_limj),
+        # the hinges, whose half-angle rotations a lane each precomputes
+        ("hinge_qadr", "int", [sys.jnt_qposadr[j] for j in hinges]),
+        ("hinge_q0", "float", [init_q[sys.jnt_qposadr[j]] for j in hinges]),
+        ("hinge_axis", "float", [x for j in hinges for x in jaxis[j]], 3),
+        ("jnt_hinge", "int", [hinges.index(j) if j in hinges else -1
+                              for j in range(nj)]),
+        ("mp_i", "int", [i for i, _ in mp]),
+        ("mp_j", "int", [j for _, j in mp]),
+        ("fac_start", "int", fac_start),
+        ("fac_i", "int", [i for i, _ in fac]),
+        ("fac_j", "int", [j for _, j in fac]),
     ] + list_tables
     return dict(sizes=sizes, scalars=scalars, ints=ints, tables=tables)
 
 
-def model_header(env) -> str:
+def model_header(env, G: int = 0) -> str:
     """The generated ``model.h`` for ``env``'s model, substeps, reward and
-    tracked bodies; the demo's frames are not in it."""
+    tracked bodies, with G lanes per sample (default ``env.kernel_group``;
+    the CPU test and ``compare_rollout.py`` build others); the demo's
+    frames are not in it."""
     t = model_tables(env.sys, env.n_frames, env.kernel_reward,
                      getattr(env, "track_body_ids", ()))
     out = ["// Generated by mbd_tpu_torch/ops/rollout_cuda.py::model_header.",
            "#pragma once", ""]
     out += [f"#define {k} {v}" for k, v in t["sizes"].items()]
-    out += [""]
+    out += ["", f"constexpr int kG = {G or env.kernel_group};"]
     out += [f"constexpr int {k} = {v};" for k, v in t["ints"].items()]
     out += [f"constexpr float {k} = {_lit(v, 'float')};"
             for k, v in t["scalars"].items()]
     out += [""]
     out += [_table(*spec) for spec in t["tables"]]
+    out += _runtime_tables(t["tables"])
     return "\n".join(out)
 
 
 # ---------------------------------------------------------------------------
 # build and bind
 # ---------------------------------------------------------------------------
+
+LAYOUT = ("G", "threads_per_block", "shared_bytes", "regs", "local_bytes",
+          "blocks_per_sm", "warps_per_sm", "sms_used")
+
 
 class Built:
     """A loaded kernel library and what the build reported."""
@@ -323,17 +408,53 @@ class Built:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
-        lib.mbd_rollout_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.mbd_rollout_attrs.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
         lib.mbd_rollout_attrs.restype = ctypes.c_int
 
-    def attrs(self) -> Dict[str, int]:
-        """Registers and local bytes per thread, resident blocks per SM."""
-        vals = [ctypes.c_int(0) for _ in range(4)]
-        err = self.lib.mbd_rollout_attrs(*[ctypes.byref(v) for v in vals])
+    def attrs(self, N: int = 2048) -> Dict[str, int]:
+        """The layout of a launch at N samples: G, threads and dynamic
+        shared bytes per block, registers and local bytes per thread,
+        resident blocks and warps per SM, and the SMs the grid occupies."""
+        out = (ctypes.c_int * len(LAYOUT))()
+        err = self.lib.mbd_rollout_attrs(N, out)
         if err != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes failed: error {err}")
-        return dict(zip(("regs", "local_bytes", "blocks_per_sm",
-                         "threads_per_block"), (v.value for v in vals)))
+            raise RuntimeError(f"mbd_rollout_attrs failed: error {err}")
+        return dict(zip(LAYOUT, out))
+
+    def run(self, env, state0, Y0s: torch.Tensor, need_qs: bool = False,
+            demo: bool = False) -> Tuple[torch.Tensor, ...]:
+        """One launch on CUDA tensors whose shapes ``rollout_rewards_cuda``
+        has checked; its outputs in that function's layout."""
+        N, H, _ = Y0s.shape
+        q0 = state0.pipeline_state.q.contiguous()
+        qd0 = state0.pipeline_state.qd.contiguous()
+        U = Y0s.permute(1, 2, 0).contiguous()                 # [H, nu, N]
+        f32 = dict(dtype=torch.float32, device=Y0s.device)
+        rews = torch.empty((H, N), **f32)
+        bad = torch.empty((N,), **f32)
+        qs = torch.empty((H, env.sys.nq, N), **f32) if need_qs else None
+        logpd = torch.empty((N,), **f32) if demo else None
+        xref = env.xref_frames if demo else None       # [H_demo, 5, 3]
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        with torch.cuda.device(Y0s.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = self.lib.mbd_rollout(
+                q0.data_ptr(), qd0.data_ptr(), int(q0.dim() == 2),
+                U.data_ptr(), rews.data_ptr(), bad.data_ptr(), ptr(qs),
+                ptr(xref), ptr(logpd), N, H, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"CUDA rollout kernel launch failed: error {err}")
+        out = (rews.t(), bad)
+        if need_qs:
+            out += (qs,)
+        if demo:
+            out += (logpd,)
+        return out
 
 
 _LIBS: Dict[str, Built] = {}
@@ -348,11 +469,9 @@ def _nvcc() -> str:
     return path
 
 
-def build(env) -> Built:
-    """Build (or load from the cache) the kernel library for ``env``."""
-    header = model_header(env)
-    with open(os.path.join(CSRC, "rollout.cu")) as f:
-        source = f.read()
+def compile_library(source: str, header: str) -> Built:
+    """Build (or load from the cache) the library of a kernel source text
+    and its ``model.h``."""
     digest = hashlib.sha256(
         (source + header + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
     if digest in _LIBS:
@@ -367,7 +486,8 @@ def build(env) -> Built:
         try:
             with open(os.path.join(tmp, "model.h"), "w") as f:
                 f.write(header)
-            shutil.copy(os.path.join(CSRC, "rollout.cu"), tmp)
+            with open(os.path.join(tmp, "rollout.cu"), "w") as f:
+                f.write(source)
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [_nvcc(), *NVCC_FLAGS, "-I", tmp, "-o",
@@ -392,6 +512,12 @@ def build(env) -> Built:
     built = Built(ctypes.CDLL(so_path), so_path, ptxas, seconds)
     _LIBS[digest] = built
     return built
+
+
+def build(env) -> Built:
+    """Build (or load from the cache) the kernel library for ``env``."""
+    with open(os.path.join(CSRC, "rollout.cu")) as f:
+        return compile_library(f.read(), model_header(env))
 
 
 # ---------------------------------------------------------------------------
@@ -430,36 +556,12 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     for t in (q0, qd0):
         if t.device != Y0s.device or t.dtype != torch.float32:
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
-    q0, qd0 = q0.contiguous(), qd0.contiguous()
-    U = Y0s.permute(1, 2, 0).contiguous()                 # [H, nu, N]
-    f32 = dict(dtype=torch.float32, device=Y0s.device)
-    rews = torch.empty((H, N), **f32)
-    bad = torch.empty((N,), **f32)
-    qs = torch.empty((H, sys.nq, N), **f32) if need_qs else None
-    logpd = torch.empty((N,), **f32) if demo else None
-    xref = env.xref_frames if demo else None           # [H_demo, 5, 3]
-    if demo and xref.device != Y0s.device:
+    if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
     # header generation and source hashing once per model, not per launch
-    built = sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}",
-                       lambda: build(env))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(Y0s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = built.lib.mbd_rollout(
-            q0.data_ptr(), qd0.data_ptr(), int(per_sample), U.data_ptr(),
-            rews.data_ptr(), bad.data_ptr(), ptr(qs), ptr(xref), ptr(logpd),
-            N, H, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA rollout kernel launch failed: error {err}")
+    built = sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}/"
+                       f"{env.kernel_group}", lambda: build(env))
+    out = built.run(env, state0, Y0s, need_qs, demo)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
-    out = (rews.t(), bad)
-    if need_qs:
-        out += (qs,)
-    if demo:
-        out += (logpd,)
     return out

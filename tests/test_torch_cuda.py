@@ -123,3 +123,40 @@ def test_kernel_trace_and_demo_match_plain_version(card, name, N, need_qs,
                                    rtol=0, atol=ATOL)
     if need_qs:
         assert torch.equal(out_k[2], out_p[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hopper", "humanoidrun"])
+@pytest.mark.parametrize("N", [1, 33, 2047, 8191])
+def test_kernel_groups_match_plain_version_at_edges(card, name, N):
+    """The env's G, at sample counts that leave a ragged last block (its
+    groups past N roll the last sample out again and write nothing):
+    rewards and the trace equal the plain version's bit for bit, flags
+    equal."""
+    env = envs.get_env(name, device=card)
+    gen = torch.Generator(card).manual_seed(2)
+    state0 = _state(env, gen, N, True)
+    Y0s = 2 * torch.rand((N, 2, env.action_size), generator=gen,
+                         device=card) - 1
+    plain = rollout_outputs(env, state0, Y0s, need_qs=True)
+    out = rollout_cuda.rollout_rewards_cuda(env, state0, Y0s, need_qs=True)
+    torch.cuda.synchronize()
+    for k, p in zip(out, plain):
+        assert torch.equal(k, p), N
+
+
+@pytest.mark.cuda
+def test_kernel_layout_reported(card):
+    """Built.attrs: the env's G, positive shared bytes per block, at
+    least one block per SM."""
+    env = envs.get_env("humanoidtrack", device=card)
+    built = rollout_cuda.build(env)
+    G = env.kernel_group
+    for N in (2048, 8192):
+        a = built.attrs(N)
+        assert a["G"] == G and a["threads_per_block"] % G == 0
+        assert a["shared_bytes"] > 0 and a["blocks_per_sm"] >= 1
+        assert a["warps_per_sm"] == (a["blocks_per_sm"]
+                                     * a["threads_per_block"] // 32)
+        assert 1 <= a["sms_used"] <= torch.cuda.get_device_properties(
+            card).multi_processor_count

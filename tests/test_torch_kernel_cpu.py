@@ -1,10 +1,13 @@
 """The CUDA rollout kernel's source (mbd_tpu_torch/csrc/rollout.cu) run as
 plain C++ on the CPU, against the torch engine it follows term for term.
 
-The kernel body needs nothing of CUDA but its keywords and thread
-indices, so a tiny shim turns ``__global__``/``__device__`` into nothing,
-drops the launch code after ``extern "C"`` and calls ``rollout_kernel``
-for every (block, thread). g++ builds it with ``-ffp-contract=off`` (no
+The kernel body needs nothing of CUDA but its keywords and its group's
+barrier, broadcast, ballot and warp maximum, so a tiny shim turns
+``__global__``/``__device__`` into nothing, puts 32 threads with a
+barrier in place of a warp's lanes (``GROUP``), drops the launch code and
+runs ``rollout_sample`` warp by warp, 32/G samples each, the ragged
+tail's groups as on the card, at the env's G (``kernel_group``) unless a
+case names another. g++ builds it with ``-ffp-contract=off`` (no
 fused multiply–add, as ``nvcc --fmad=false``); float arithmetic on x86-64
 is IEEE single, as on the card. Only sin and cos come from another
 library than torch's, so the inputs take no sine or cosine of a nonzero
@@ -40,10 +43,18 @@ raised by 0.03 makes it the nearest. That case, and a rotated slider,
 whose angle's sine and cosine the substep takes, run under
 ``rounded_math`` and are held bit for bit.
 
+humanoidrun with hinges past their limits and feet in the floor in some
+samples (``_past_limits``) puts active and inactive rows of both kinds in
+one batch, at G = 8, 16 and 32; its hinge angles are not 0, so the plain
+version takes the C library's sqrtf, sinf and cosf (``libm_math``), as the
+card's plain version takes the card's, and the rewards and trace are held
+bit for bit.
+
 Skips where g++ is missing.
 """
 
 import ctypes
+import ctypes.util
 import math
 import os
 import shutil
@@ -59,49 +70,110 @@ from mbd_tpu_torch.rollout.fused import rollout_outputs
 from mbd_tpu_torch.sim.system import FREE, HINGE, SLIDE
 
 SHIM = """
+#include <barrier>
 #include <cmath>
+#include <cstring>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
-struct dim3 { int x, y, z; };
-static dim3 blockIdx, threadIdx, blockDim;
+#define __shared__
 """
+# A warp's 32 lanes as threads: one barrier for __syncwarp, and shared
+# words for __shfl_sync (one per group), __ballot_sync and
+# __reduce_max_sync (one per lane).
+GROUP = """
+template <int G>
+struct Group {
+  int lane, base;
+  std::barrier<>* bar;
+  float* words;
+  unsigned* bits;
+  int* ints;
+  void sync() const { bar->arrive_and_wait(); }
+  float bcast(float v, int src) const {
+    sync();
+    if (lane == src) words[base / G] = v;
+    sync();
+    return words[base / G];
+  }
+  unsigned ballot(bool p) const {
+    sync();
+    bits[base + lane] = p ? 1u : 0u;
+    sync();
+    unsigned m = 0;
+    for (int l = 0; l < G; ++l) m |= bits[base + l] << l;
+    return m;
+  }
+  int warp_max(int v) const {
+    sync();
+    ints[base + lane] = v;
+    sync();
+    int m = ints[0];
+    for (int l = 1; l < 32; ++l) m = ints[l] > m ? ints[l] : m;
+    return m;
+  }
+};
+inline int popc(unsigned m) { return __builtin_popcount(m); }
+"""
+# Warp by warp, 32 threads each, as on the card (groups of kG lanes, the
+# ragged tail's groups rolling sample N − 1 out again and writing
+# nothing), in slices filled with NaN first, so that a read before a write
+# shows in the output.
 DRIVER = """
+}  // namespace
 extern "C" void cpu_rollout(const float* q0, const float* qd0,
                             int per_sample, const float* U, float* rews,
                             float* bad, float* qs, const float* xref,
                             float* logpd, int N, int H) {
-  blockDim.x = kThreads;
-  for (int b = 0; b < (N + kThreads - 1) / kThreads; ++b)
-    for (int t = 0; t < kThreads; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      rollout_kernel(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, N,
-                     H);
-    }
+  std::memcpy(&tables, &kTablesInit, sizeof(Tables));
+  constexpr int W = 32 / kG;
+  std::vector<Slice> slice(W);
+  for (int w = 0; w * W < N; ++w) {
+    std::memset(slice.data(), 0xff, W * sizeof(Slice));
+    std::barrier<> bar(32);
+    float words[W] = {};
+    unsigned bits[32] = {};
+    int ints[32] = {};
+    std::vector<std::thread> lanes;
+    for (int t = 0; t < 32; ++t)
+      lanes.emplace_back([&, t] {
+        const int grp = t / kG, n = w * W + grp;
+        const Group<kG> g{t % kG, t - t % kG, &bar, words, bits, ints};
+        rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
+                           per_sample, U, rews, bad, qs, xref, logpd, N, H);
+      });
+    for (auto& t : lanes) t.join();
+  }
 }
 """
 ATOL = 2e-6
-N = 130          # two blocks of 128 threads, the second ragged
+N = 130
 
 
-def _cpu_kernel(env, out_dir):
+def _cpu_kernel(env, out_dir, G):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
     with open(os.path.join(rollout_cuda.CSRC, "rollout.cu")) as f:
         src = f.read()
     src = src.replace("#include <cuda_runtime.h>", SHIM)
-    src = src.replace('#include "model.h"', rollout_cuda.model_header(env))
-    src = src[:src.index('extern "C" {')] + DRIVER
+    src = src.replace('#include "model.h"',
+                      rollout_cuda.model_header(env, G))
+    a = src.index("// --- begin group ---")
+    b = src.index("// --- end group ---")
+    src = src[:a] + GROUP + src[b:src.index("// --- launch ---")] + DRIVER
     cpp, so = os.path.join(out_dir, "k.cpp"), os.path.join(out_dir, "k.so")
     with open(cpp, "w") as f:
         f.write(src)
-    subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17",
-                    "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", so,
-                    cpp], check=True, capture_output=True)
+    proc = subprocess.run(
+        [gxx, "-O1", "-ffp-contract=off", "-std=c++20", "-pthread",
+         "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", so,
+         cpp], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(so)
     lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
@@ -196,16 +268,18 @@ def _pusht_branches(q, lift=0.0):
     return torch.stack(faces), torch.stack(touching)
 
 
-def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None):
+def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None,
+         G=None):
     """One substep of the kernel source and of the plain version from the
     same inputs: (kernel outputs, plain outputs), each (rews [N, 1],
     bad[, qs][, logpd]). ``sys`` replaces the env's model; ``inputs(sys,
-    gen)`` makes q0/qd0 (default ``_inputs``)."""
+    gen)`` makes q0/qd0 (default ``_inputs``); G lanes per sample (default
+    the env's)."""
     env = envs.get_env(name, device="cpu")
     env.n_frames = 1
     if sys is not None:
         env.sys = sys
-    lib = _cpu_kernel(env, out_dir)
+    lib = _cpu_kernel(env, out_dir, G or env.kernel_group)
     gen = torch.Generator().manual_seed(0)
     q0, qd0 = (inputs or _inputs)(env.sys, gen)
     Y0s = 2 * torch.rand((N, 1, env.action_size), generator=gen) - 1
@@ -308,3 +382,62 @@ def test_kernel_source_demo_logpd(tmp_path, rounded_math):
     assert torch.equal(kernel[2], plain[2])
     assert float((kernel[3] - plain[3]).abs().max()) <= 2e-6
     assert float(kernel[3].std()) > 0
+
+
+def _past_limits(sys, gen):
+    """``_inputs`` with every limited hinge below its range in a fifth of
+    the samples, above it in another fifth, and inside it in the rest."""
+    q, qd = _inputs(sys, gen)
+    jrange = sys.host("jnt_range")
+    for j in range(sys.njnt):
+        if sys.jnt_type[j] != HINGE or not sys.jnt_limited[j]:
+            continue
+        lo, hi = (float(v) for v in jrange[j])
+        pick = torch.rand(N, generator=gen)
+        past = torch.rand(N, generator=gen) * 0.1
+        inside = lo + (hi - lo) * torch.rand(N, generator=gen)
+        q[sys.jnt_qposadr[j]] = torch.where(
+            pick < 0.2, lo - past, torch.where(pick < 0.4, hi + past, inside))
+    return q.contiguous(), qd
+
+
+@pytest.fixture
+def libm_math(monkeypatch):
+    """The plain engine with float32 sqrt, sin and cos from the C library
+    the kernel source calls (sqrtf, sinf, cosf), element by element. The
+    hinges' angles below are not 0, and on some of them glibc's sinf is not
+    the correctly rounded value that ``rounded_math`` takes, so the plain
+    version takes the kernel's own, as on the card, where both call the
+    same sinf."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sqrt", "sin", "cos"):
+        fn = getattr(libm, name + "f")
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+        monkeypatch.setattr(torch, name, lambda x, fn=fn: torch.tensor(
+            [fn(v) for v in x.reshape(-1).tolist()],
+            dtype=x.dtype).reshape(x.shape))
+
+
+@pytest.mark.parametrize("G", [8, 16, 32])
+def test_kernel_source_active_and_inactive_rows(G, tmp_path, libm_math):
+    """humanoidrun with hinges past their limits and feet in the floor in
+    some samples, within range and clear in others: active and inactive
+    rows of both kinds in one batch, the inactive ones dropped from the
+    solves and the sweep; rewards and the trace bit for bit."""
+    from mbd_tpu_torch.sim import batched as BT
+
+    kernel, plain, q0 = _run("humanoidrun", str(tmp_path), need_qs=True,
+                             inputs=_past_limits, G=G)
+    assert torch.equal(kernel[0], plain[0])
+    assert torch.equal(kernel[2], plain[2])
+    sys = envs.get_env("humanoidrun", device="cpu").sys
+    jrange = sys.host("jnt_range")
+    past = torch.stack([(q0[sys.jnt_qposadr[j]] < float(jrange[j, 0])) |
+                        (q0[sys.jnt_qposadr[j]] > float(jrange[j, 1]))
+                        for j in range(sys.njnt)
+                        if sys.jnt_type[j] == HINGE and sys.jnt_limited[j]])
+    depth = torch.stack([c.depth for c in BT.collide_b(sys, BT.fk_b(sys,
+                                                                   q0))])
+    # per sample, some limit rows and some contacts active, others not
+    assert bool((past.any(0) & ~past.all(0)).all())
+    assert bool((depth > 0).any()) and bool((depth <= 0).any())

@@ -201,21 +201,24 @@ def test_model_header_sizes(name, nc):
 def test_kernel_accepts_free_roots_and_plane_sphere(name, ncon, reward):
     """Free roots and plane–sphere pairs are in the kernel: the header
     carries the contact rows, the free root's height sensor, the env's
-    reward branch and, at these sizes, rolled per-row loops."""
+    reward branch and the lanes per sample: 16 on humanoidrun, whose plans
+    run at N = 8192, 8 on the others."""
     env = envs.get_env(name, device="cpu")
     rollout_cuda.check_supported(env.sys)
     t = rollout_cuda.model_tables(env.sys, env.n_frames, env.kernel_reward)
     assert t["sizes"]["NCON"] == ncon and t["sizes"]["NSENSOR"] == 1
     assert t["ints"]["kReward"] == rollout_cuda.REWARD_IDS[reward]
-    assert t["ints"]["kRowUnroll"] == 1
+    G = 16 if name == "humanoidrun" else 8
+    assert f"constexpr int kG = {G};" in rollout_cuda.model_header(env)
     assert ("sensor_qadr", "int", [2]) in t["tables"]   # root z = q[2]
 
 
 def test_model_header_pusht():
     """pushT in the kernel: two sphere–box pairs (the pusher, geom 1,
     against the slider's bars, geoms 2 and 3), one row each, then 6
-    limited slides: 14 rows, unrolled; the box half-sizes in
-    ``pair_box_b``, the pusher's radius in ``pair_r1``, the push reward."""
+    limited slides: 14 rows, at 8 lanes a sample; the box
+    half-sizes in ``pair_box_b``, the pusher's radius in ``pair_r1``, the
+    push reward."""
     env = envs.get_env("pushT", device="cpu")
     rollout_cuda.check_supported(env.sys)
     assert env.sys.contact_pairs == ((3, 1, 2), (3, 1, 3))
@@ -230,10 +233,10 @@ def test_model_header_pusht():
         np.float32([0.15, 0.05, 0.05, 0.05, 0.15, 0.05]))
     np.testing.assert_array_equal(np.asarray(tables["pair_r1"], np.float32),
                                   np.float32([0.05, 0.05]))
-    assert t["ints"]["kRowUnroll"] == 14
     assert t["ints"]["kReward"] == rollout_cuda.REWARD_IDS["push"]
     header = rollout_cuda.model_header(env)
     assert "#define NC 14\n" in header
+    assert "constexpr int kG = 8;" in header
     assert "constexpr int kReward = 7;" in header
 
 
@@ -322,3 +325,20 @@ def test_reward_qs_b_matches_jax(name):
     r_t = tenv.reward_qs_b(*map(torch.from_numpy, (qs, qds, us, q0, qd0)))
     assert r_t.shape == (H, N)
     np.testing.assert_allclose(r_j, r_t.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["hopper", "walker2d", "halfcheetah",
+                                  "cartpole", "ant", "humanoidrun",
+                                  "humanoidstandup", "humanoidtrack",
+                                  "pushT"])
+def test_group_size_is_built(name):
+    """Each env's header is built for its G, the one timed fastest at its
+    planning shape (PERF.md, PR 5): 16 on humanoidrun, 8 on the others;
+    a G the header is given overrides it."""
+    env = envs.get_env(name, device="cpu")
+    G = 16 if name == "humanoidrun" else 8
+    assert env.kernel_group == G
+    assert f"constexpr int kG = {G};" in rollout_cuda.model_header(env)
+    other = 32 // G
+    assert f"constexpr int kG = {other};" in rollout_cuda.model_header(
+        env, other)
