@@ -54,10 +54,34 @@ Phases, each of which raises on failure (exit code 1):
      N = 2048, H = 50 with the demo; before it, a short demo plan on
      humanoidtrack_walk and the plan without the demo;
    - every other model: a short plan (Nsample 256, H 10, Ndiffuse 5);
+   - the seed-batched paths, after the serial ones: ``mbd.plan_batch`` on
+     hopper, 8 seeds at 2048 / 50 / 100, with no seed flagged, its mean
+     within the two-sample bound of JAX's 8-seed mean
+     (``docs/RESULTS.json``) and seed 0 within 5e-3 of its serial plan;
+     then ``path_integral.plan_batch`` with MPPI, CEM and CMA-ES, each
+     mean within the bound of ``docs/RESULTS_BASELINES.json``'s;
+     humanoidrun, 8 × 8192 samples a step for 3 steps; humanoidtrack with
+     the demo, 2 seeds for 3 steps. Each takes one launch a step and one
+     for the final selection; its first step's samples are launched again
+     at S·N and each seed's alone, which must agree bit for bit, and the
+     plain version rolls out a strided set of the S·N samples (the first
+     and last of every seed among them) from their own initial states,
+     to the batch's outputs within 1e-5; the launches at S·N and of seed
+     0 are timed;
    no path calls the plain engine on the card, and each ends with finite
    outputs of the expected shapes;
-4. one JSON line with the kernels' numbers (with each baseline's
-   launches, final reward and wall), then the device line.
+4. the CLI, ``python -m mbd_tpu_torch.cli.run_mbd --env_name hopper
+   --mode single`` into a temporary directory (in this process): its
+   mu_0ts.npy and rollout.html, 101 launches of which one with the trace;
+   then the replay of the reference's committed 8-seed plans of every
+   harness directory under ``results/``, one launch each from JAX's resets
+   (``mbd_tpu_torch/rollout/replay.py``), each seed within its env's
+   tolerance but for the seeds logged as faults; then each directory's
+   plans from 32 one-ulp perturbations of the resets, one launch, whose
+   spread is the humanoids' tolerance and must stay within it;
+5. one JSON line with the kernels' numbers (with each baseline's
+   launches, final reward and wall, and each batched path's), then the
+   device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -69,6 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -112,6 +137,10 @@ MIN_PUSHT_REWARD = 0.57
 # beat zero controls from its own reset.
 MIN_HOPPER_BASELINE = {"mppi": 0.99, "cem": 0.93, "cma-es": 1.09}
 BASELINES = ("mppi", "cem", "cma-es")
+# Seed 0 of plan_batch against its serial plan: the same noise, the same
+# per-sample bits, each seed's statistics at the serial shapes; only the
+# final selection's mean over H may round otherwise.
+BATCH_SERIAL_ATOL = 5e-3
 SHORT_PLAN = dict(Nsample=256, Hsample=10, Ndiffuse=5)
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, and
 # device memory
@@ -464,6 +493,221 @@ def confirm_final_plan(torch, rc, env, res, state_init, case,
         raise AssertionError("the plain version disagrees on the final plan")
 
 
+def check_bound(sq, label, rewards, key):
+    """The two-sample bound on the 8-seed mean against JAX's row ``key``
+    (``seed_quality.reference`` and ``seed_quality.bound``); JAX's numbers
+    and the bound are printed here and kept out of the kernels line."""
+    ref = sq.reference(key)
+    b = sq.bound(ref["rew_mean"], ref["rew_std"], rewards)
+    print(f"  {label}: {len(rewards)}-seed mean {b['mean']:.4f} ± "
+          f"{b['std']:.4f} against JAX's {b['ref_mean']:.4f} ± "
+          f"{b['ref_std']:.4f}: |Δ| {abs(b['mean'] - b['ref_mean']):.4f}, "
+          f"bound {b['bound']:.4f}", flush=True)
+    if not b["ok"]:
+        raise AssertionError(f"{label}: the mean is outside the bound")
+    return dict(mean=b["mean"], std=b["std"], in_bound=True)
+
+
+def drive_batch(torch, envs, rc, fused, planner, name, cfg, S, gpu):
+    """``planner.plan_batch`` on ``name`` at ``cfg`` for seeds 0 … S − 1,
+    counts set to 0 just before and read just after: finite outputs of
+    the expected shapes, one launch per step and one for the final
+    selection (each step with the demo when ``cfg`` has it), no
+    plain-engine call. Returns (env, result, launches, wall)."""
+    env = envs.get_env(name, device="cuda")
+    demo = getattr(cfg, "enable_demo", False)
+    T = (cfg.Ndiffuse if hasattr(cfg, "Ndiffuse") else cfg.Nrefine) - 1
+    torch.cuda.synchronize()
+    gens = [torch.Generator("cuda").manual_seed(s) for s in range(S)]
+    rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.QS_LAUNCHES = 0
+    fused.CUDA_CALLS = 0
+    t0 = time.perf_counter()
+    res = planner.plan_batch(env, cfg, gens)
+    rewards = res.final_reward.tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, demos, plain_calls = rc.LAUNCHES, rc.DEMO_LAUNCHES, \
+        fused.CUDA_CALLS
+    plans = res.Ybars if hasattr(res, "Ybars") else res.mu_0ts
+    label = (f"plan_batch {name} "
+             f"{getattr(cfg, 'update_method', 'mbd')} {S}×{cfg.Nsample}/"
+             f"{cfg.Hsample}/{T + 1} demo={demo}")
+    print(f"{label}: final rewards {[round(r, 4) for r in rewards]}, "
+          f"{int(res.final_diverged.sum())} flagged, {launches} kernel "
+          f"launches ({demos} with the demo), {plain_calls} plain-engine "
+          f"calls on CUDA; wall {wall:.2f} s on {gpu}", flush=True)
+    if tuple(plans.shape) != (S, T, cfg.Hsample, env.action_size) or \
+            tuple(res.rews_trace.shape) != (S, T) or \
+            tuple(res.final_diverged.shape) != (S,):
+        raise AssertionError(f"{label}: output shapes")
+    if not (bool(torch.isfinite(plans).all())
+            and bool(torch.isfinite(res.rews_trace).all())
+            and bool(torch.isfinite(res.final_reward).all())):
+        raise AssertionError(f"{label}: outputs are not finite")
+    if launches != T + 1 or demos != (T if demo else 0):
+        raise AssertionError(f"{label}: {launches} launches ({demos} with "
+                             f"the demo), not {T} + 1")
+    if plain_calls != 0:
+        raise AssertionError(f"{label}: plain engine ran {plain_calls}× on "
+                             "CUDA")
+    return env, res, launches, wall
+
+
+def batch_checks(torch, rc, mbd, env, cfg, S, n_strided=64):
+    """The first step's samples of S seeds, as ``plan_batch`` draws them,
+    launched at S·N with per-sample initial states, then each seed's
+    alone: every seed's rewards, flags (and demo log-densities) in the
+    batch must equal its own launch's bit for bit. Then the plain version
+    on a strided set of the S·N samples (``n_strided`` spread over the
+    batch, and the first and last of every seed), from their own initial
+    states: the batch's outputs there within ATOL, the flags equal.
+    Returns (ms at S·N, ms of seed 0's launch, layout at S·N, max |Δ|
+    against the plain version); these launches are comparisons, not a
+    path's."""
+    from mbd_tpu_torch.core.schedule import make_schedule
+    from mbd_tpu_torch.rollout.fused import rollout_outputs
+
+    N, H, nu = cfg.Nsample, cfg.Hsample, env.action_size
+    gens = [torch.Generator("cuda").manual_seed(s) for s in range(S)]
+    states = [env.reset(g) for g in gens]
+    sigma = make_schedule(cfg.Ndiffuse, cfg.beta0, cfg.betaT,
+                          device="cuda").sigmas[cfg.Ndiffuse - 1]
+    Y0s = torch.clamp(mbd.draw_eps(gens, (N, H, nu), "cuda") * sigma + 0.0,
+                      -1.0, 1.0).reshape(S * N, H, nu)
+    batch_state = mbd.seed_major(states, N)
+    ms_b, out_b = time_ms(torch, lambda: rc.rollout_rewards_cuda(
+        env, batch_state, Y0s, demo=cfg.enable_demo), 3)
+    ms_1, _ = time_ms(torch, lambda: rc.rollout_rewards_cuda(
+        env, states[0], Y0s[:N], demo=cfg.enable_demo), 3)
+    unequal = []
+    for s in range(S):
+        own = rc.rollout_rewards_cuda(env, states[s], Y0s[s * N:(s + 1) * N],
+                                      demo=cfg.enable_demo)
+        if not all(bool(torch.equal(a[s * N:(s + 1) * N], b))
+                   for a, b in zip(out_b, own)):
+            unequal.append(s)
+    idx = torch.cat([torch.linspace(0, S * N - 1, n_strided,
+                                    device="cuda").round().long(),
+                     torch.arange(S, device="cuda") * N,
+                     torch.arange(1, S + 1, device="cuda") * N - 1]).unique()
+    ps = batch_state.pipeline_state
+    sub = SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=ps.q[:, idx].contiguous(), qd=ps.qd[:, idx].contiguous()))
+    plain = rollout_outputs(env, sub, Y0s[idx], False, cfg.enable_demo)
+    names = ["rews", "bad"] + ["logpd"] * cfg.enable_demo
+    errs = {k: float((a[idx] - b).abs().max()) for k, a, b
+            in zip(names, out_b, plain) if k != "bad"}
+    flags = bool(torch.equal(out_b[1][idx], plain[1]))
+    err = max(errs.values())
+    layout = rc.build(env).attrs(S * N)
+    print(f"  {env.sys.nq}-dof batch of {S}×{N}: kernel {ms_b:.3f} ms per "
+          f"launch at S·N = {S * N} ({layout['G']} lanes per sample, "
+          f"{layout['sms_used']} SMs, {layout['warps_per_sm']} warps per "
+          f"SM), {ms_1:.3f} ms for one seed's {N}; each seed's outputs in "
+          f"the batch equal its own launch's bit for bit, seeds that do "
+          f"not: {unequal}; plain version on {idx.numel()} samples up to "
+          f"the last, {idx.max().item()}: "
+          + ", ".join(f"max|Δ{k}| {v:.3g}" for k, v in errs.items())
+          + f" (atol {ATOL:g}), flags equal {flags}", flush=True)
+    if unequal:
+        raise AssertionError(f"seeds {unequal}' samples differ inside the "
+                             "batch")
+    if not err <= ATOL or not flags:
+        raise AssertionError("the batch launch and the plain version differ")
+    return ms_b, ms_1, layout, err
+
+
+def drive_cli(torch, rc, fused, envs, gpu):
+    """``python -m mbd_tpu_torch.cli.run_mbd --env_name hopper --mode
+    single`` into a temporary directory, run in this process so that the
+    counts can be read: mu_0ts.npy [99, 50, 3], a rollout.html of 50
+    frames with the model's geoms, 99 + 1 plan launches and the viewer's
+    trace from one ``need_qs`` launch, no plain-engine call."""
+    import runpy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mbd_tpu_torch.viz import html
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    argv = sys.argv
+    sys.argv = ["run_mbd", "--env_name", "hopper", "--mode", "single",
+                "--results_dir", out]
+    rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.QS_LAUNCHES = 0
+    fused.CUDA_CALLS = 0
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("mbd_tpu_torch.cli.run_mbd", run_name="__main__",
+                         alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches=rc.LAUNCHES, need_qs=rc.QS_LAUNCHES,
+                      plain_calls=fused.CUDA_CALLS)
+        mu = np.load(os.path.join(out, "hopper", "mu_0ts.npy"))
+        with open(os.path.join(out, "hopper", "rollout.html")) as f:
+            page = f.read()
+    finally:
+        sys.argv = argv
+        shutil.rmtree(out)
+    data = json.loads(re.search(r"const DATA = (.*);\n", page).group(1))
+    geoms = html._system_dict(envs.get_env("hopper", device="cuda").sys)
+    print(f"cli hopper single: mu_0ts {list(mu.shape)}, rollout.html "
+          f"{len(page)} bytes with {len(data['frames'])} frames and "
+          f"{len(data['system']['geoms'])} geoms, {counts}; wall "
+          f"{wall:.2f} s on {gpu}", flush=True)
+    if mu.shape != (99, 50, 3) or not np.isfinite(mu).all():
+        raise AssertionError("cli: mu_0ts.npy")
+    if len(data["frames"]) != 50 or data["system"] != geoms:
+        raise AssertionError("cli: rollout.html")
+    if counts != dict(launches=101, need_qs=1, plain_calls=0):
+        raise AssertionError(f"cli: launches {counts}")
+    return counts
+
+
+def drive_replay(torch, envs, rc, gpu):
+    """The reference's committed 8-seed plans of every harness directory,
+    one launch each from JAX's resets (``rollout/replay.py``): each seed's
+    flag as committed and its mean reward within the env's tolerance of
+    the committed one, but for the seeds logged as faults (printed). Then,
+    in one more launch each, the plans from 32 one-ulp perturbations of the
+    resets (``replay.spread``): the humanoids' tolerance is that spread,
+    which must not pass it; the other envs' spread is printed beside
+    their tolerance, JAX's own drift from the TPU to a CPU. Returns the
+    largest gap and the spread per directory."""
+    from mbd_tpu_torch.rollout import replay
+
+    gaps, missed, wide = {}, [], []
+    for directory, name in replay.HARNESS.items():
+        env = envs.get_env(name, device="cuda")
+        rc.LAUNCHES = 0
+        (rews, bad), ref = replay.replay(env, directory)
+        launches = rc.LAUNCHES
+        gap = rews - ref["rewards"]
+        faults = sorted(replay.misses(directory, rews, bad, ref))
+        logged = replay.faults(directory, "cuda")
+        spread, flips = replay.spread(env, directory)
+        tol = replay.tolerance(directory)
+        print(f"replay {directory}: {launches} launch, kernel − "
+              f"committed per seed {[f'{g:.3g}' for g in gap]} (atol "
+              f"{tol:.3g}), flags {bad.tolist()} (committed "
+              f"{ref['diverged'].tolist()}); missed: {faults} (logged "
+              f"faults {sorted(logged)}); one-ulp spread {spread:.4g} with "
+              f"{flips} flag flips of 256", flush=True)
+        if launches != 1:
+            raise AssertionError(f"replay {directory}: {launches} launches")
+        missed += [(directory, s) for s in faults if s not in logged]
+        if name in replay.SPREAD_SET and not spread <= tol:
+            wide.append((directory, spread))
+        gaps[directory] = dict(max_gap=float(abs(gap).max()), spread=spread)
+    if missed:
+        raise AssertionError(f"replay: {missed} beyond the tolerance")
+    if wide:
+        raise AssertionError(f"replay: spreads {wide} pass the tolerance")
+    return gaps
+
+
 def main() -> int:
     import torch
 
@@ -480,6 +724,7 @@ def main() -> int:
     from mbd_tpu_torch.planners import mbd
     from mbd_tpu_torch.planners import path_integral as pi
     from mbd_tpu_torch.rollout import fused
+    import seed_quality as sq
 
     t_start = time.perf_counter()
 
@@ -513,6 +758,61 @@ def main() -> int:
     # the baselines after each of these paths, with their floors
     baselines = {"hopper": MIN_HOPPER_BASELINE,
                  "pushT": dict.fromkeys(BASELINES)}
+
+    # the seed-batched paths after these, each given the serial plan
+    def hopper_batch(serial):
+        """8 seeds at hopper's recommended config, within the two-sample
+        bound of JAX's 8-seed mean, no seed flagged, seed 0 its serial
+        plan; then MPPI, CEM and CMA-ES batched the same way."""
+        cfg, S = paths["hopper"][0], 8
+        env, res, launches, wall = drive_batch(torch, envs, rc, fused, mbd,
+                                               "hopper", cfg, S, gpu)
+        if bool(res.final_diverged.any()):
+            raise AssertionError("plan_batch hopper: a seed is flagged")
+        out = dict(launches=launches, wall_s=wall, **check_bound(
+            sq, "hopper MBD", res.final_reward.tolist(), "hopper"))
+        gap = abs(float(res.final_reward[0]) - float(serial.final_reward))
+        print(f"  seed 0 in the batch {float(res.final_reward[0]):.6f}, "
+              f"serial {float(serial.final_reward):.6f}: |Δ| {gap:.3g} "
+              f"(at most {BATCH_SERIAL_ATOL})", flush=True)
+        if not gap <= BATCH_SERIAL_ATOL:
+            raise AssertionError("seed 0 of the batch is not its serial plan")
+        out["ms_SN"], out["ms_one_seed"], layout, out["max_abs_err"] = \
+            batch_checks(torch, rc, mbd, env, cfg, S)
+        out["G"] = layout["G"]
+        out["baselines"] = {}
+        for method in BASELINES:
+            pcfg = pi.recommended_config("hopper", pi.PathIntegralConfig(
+                update_method=method))
+            _, pres, n, pwall = drive_batch(torch, envs, rc, fused, pi,
+                                            "hopper", pcfg, S, gpu)
+            out["baselines"][method] = dict(
+                launches=n, wall_s=pwall,
+                flagged=int(pres.final_diverged.sum()), **check_bound(
+                    sq, f"hopper {method}", pres.final_reward.tolist(),
+                    f"hopper/{method}"))
+        return out
+
+    def humanoidrun_batch(serial):
+        """8 × 8192 samples a step (N = 65 536) for a few steps."""
+        cfg = dataclasses.replace(paths["humanoidrun"][0], Ndiffuse=4)
+        env, _, launches, wall = drive_batch(torch, envs, rc, fused, mbd,
+                                             "humanoidrun", cfg, 8, gpu)
+        ms_sn, ms_1, layout, err = batch_checks(torch, rc, mbd, env, cfg, 8)
+        return dict(launches=launches, wall_s=wall, ms_SN=ms_sn,
+                    ms_one_seed=ms_1, G=layout["G"], max_abs_err=err)
+
+    def humanoidtrack_batch(serial):
+        """2 seeds with the demo, for a few steps: the per-seed fusion."""
+        cfg = dataclasses.replace(paths["humanoidtrack"][0], Ndiffuse=4)
+        env, _, launches, wall = drive_batch(torch, envs, rc, fused, mbd,
+                                             "humanoidtrack", cfg, 2, gpu)
+        ms_sn, ms_1, layout, err = batch_checks(torch, rc, mbd, env, cfg, 2)
+        return dict(launches=launches, wall_s=wall, ms_SN=ms_sn,
+                    ms_one_seed=ms_1, G=layout["G"], max_abs_err=err)
+
+    batches = {"hopper": hopper_batch, "humanoidrun": humanoidrun_batch,
+               "humanoidtrack": humanoidtrack_batch}
 
     # 2. the plain version of every other comparison, after the operation
     # counts
@@ -551,7 +851,7 @@ def main() -> int:
 
     # 3. as each build ends: its checks, then its path
     stats = {name: dict(max_abs_err=0.0, launches=0, modes=set(),
-                        baselines={}) for name in ENVS}
+                        baselines={}, plan_batch=None) for name in ENVS}
 
     def check(case):
         st = stats[case.name]
@@ -604,15 +904,25 @@ def main() -> int:
             for method, floor in baselines.get(name, {}).items():
                 st["baselines"][method] = drive_baseline(
                     torch, envs, rc, fused, pi, name, method, floor, gpu)
+            if name in batches:
+                st["plan_batch"] = batches[name](res)
+                st["max_abs_err"] = max(st["max_abs_err"],
+                                        st["plan_batch"]["max_abs_err"])
         else:
             cfg = mbd.recommended_config(name, mbd.MBDConfig(**SHORT_PLAN))
             _, _, _, st["launches"] = drive_plan(torch, envs, rc, fused, mbd,
                                                  name, cfg, gpu)
     pool.shutdown()
+
+    # 4. the CLI, and the replay of the reference's committed plans
+    stats["hopper"]["cli"] = drive_cli(torch, rc, fused, envs, gpu)
+    replay_gaps = drive_replay(torch, envs, rc, gpu)
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
 
-    # 4. results
+    # 5. results
+    from mbd_tpu_torch.rollout import replay
+
     for name in ENVS:
         st = stats[name]
         print(f"bound {name} {st['shape']}: {st['operations']} operations, "
@@ -628,6 +938,16 @@ def main() -> int:
         # launches, final reward and wall of each path_integral.plan
         "baselines": {m: dict(launches=n, **res) for m, (n, res)
                       in stats[name]["baselines"].items()},
+        # plan_batch: launches, wall, ms per launch at S·N and for one
+        # seed, max |Δ| against the plain version at S·N, the seeds' mean
+        # and std, and whether the mean held the bound against JAX's
+        "plan_batch": stats[name]["plan_batch"],
+        # the CLI's single run: its launches, need_qs among them
+        "cli": stats[name].get("cli"),
+        # the committed plans replayed: the largest |kernel − committed|,
+        # and the largest change one ulp of the resets makes
+        "replay": {d: g for d, g in replay_gaps.items()
+                   if replay.HARNESS[d] == name},
         # lanes per sample, shared bytes per block and resident warps per
         # SM of the launch at the timed shape
         "G": stats[name]["G"], "shared_bytes": stats[name]["shared_bytes"],

@@ -35,4 +35,4 @@ def get_env(env_name: str, device=DEFAULT):
         return PushT(device)
     raise NotImplementedError(
         f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1 item 2)")
+        "(see ROADMAP.md, Queue 1, the item \"car2d and the vmap path\")")

@@ -54,9 +54,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # Launches of the CUDA kernel, counted where the kernel is launched; of
-# those, the launches with demo=True.
+# those, the launches with demo=True and those with need_qs=True.
 LAUNCHES = 0
 DEMO_LAUNCHES = 0
+QS_LAUNCHES = 0
+# The kernel indexes its arrays with 32-bit ints: the largest, qs's
+# (t·nq + i)·N + n, must stay below 2³¹.
+MAX_INDEX = 2 ** 31 - 1
 
 REWARD_IDS = {"progress": 0, "velocity": 1, "swingup": 2, "run": 3,
               "standup": 4, "healthy": 5, "track": 6, "push": 7}
@@ -534,7 +538,7 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    global LAUNCHES, DEMO_LAUNCHES
+    global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES
     sys = env.sys
     check_supported(sys)
     N, H, nu = Y0s.shape
@@ -546,6 +550,9 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
     if Y0s.dtype != torch.float32:
         raise TypeError(f"Y0s must be float32, not {Y0s.dtype}")
+    if H * max(sys.nq, sys.nv, sys.nu) * N > MAX_INDEX:
+        raise ValueError(f"N·H = {N}·{H} is too large for the kernel's "
+                         "32-bit indices")
     q0, qd0 = state0.pipeline_state.q, state0.pipeline_state.qd
     per_sample = q0.dim() == 2
     if per_sample and (q0.shape != (sys.nq, N) or qd0.shape != (sys.nv, N)):
@@ -564,4 +571,5 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     out = built.run(env, state0, Y0s, need_qs, demo)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
+    QS_LAUNCHES += int(need_qs)
     return out

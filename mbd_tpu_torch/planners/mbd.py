@@ -1,5 +1,6 @@
 """Model-Based Diffusion trajectory optimizer (port of
-``mbd_tpu/planners/mbd.py``: ``plan`` and its reverse step).
+``mbd_tpu/planners/mbd.py``: ``plan``, ``plan_batch`` and their reverse
+step).
 
 Per reverse step i, from Ndiffuse−1 down to 1:
 
@@ -24,6 +25,10 @@ standardized with the reward's mean and std into logp_demo. The fused
 log-weights are standardized again and divided by the temperature a second
 time: the reference's behaviour, kept as it is.
 
+Seed batching (``plan_batch``): S independent plans fold their samples
+into one rollout of S·Nsample samples per step, sample s·N + n starting
+from seed s's reset state; each seed's statistics above are its own.
+
 Every tensor lives on ``env.device`` and the loop never waits on the
 device until the final evaluation. Random numbers come from an explicit
 ``torch.Generator``: ``env.reset`` draws the initial state from it, then
@@ -34,7 +39,8 @@ stream with given tensors (the tests feed JAX's stream through it).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from types import SimpleNamespace
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -77,57 +83,98 @@ def recommended_config(env_name: str,
 
 @dataclass
 class MBDResult:
+    """One plan's result; from ``plan_batch`` every field has a leading
+    seed axis S, and ``final_diverged`` is a [S] bool tensor."""
     Ybars: torch.Tensor          # (Ndiffuse-1, Hsample, nu) denoised means
     rews_trace: torch.Tensor     # (Ndiffuse-1,) mean batch reward per step
     final_reward: torch.Tensor   # mean reward of rolling out Ybars[-1]
     # True when the returned plan's own rollout is flagged by the validity
     # envelope and no clean iterate existed to fall back to: final_reward
     # is then not an earned number
-    final_diverged: bool = False
+    final_diverged: Union[bool, torch.Tensor] = False
 
 
-def make_reverse_once(env, cfg: MBDConfig, state_init,
-                      sched: DiffusionSchedule) -> Callable:
-    """The reverse step as ``reverse_once(Ybar_i, i, eps) → (Ybar_{i−1},
-    mean reward)``, with ``eps`` [Nsample, Hsample, nu] the step's noise."""
+def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
+                            sched: DiffusionSchedule) -> Callable:
+    """The reverse step of S = len(states_init) independent denoises as
+    ``reverse_once(Ybar_i, i, eps) → (Ybar_{i−1}, mean reward)``, with
+    Ybar_i [S, H, nu], eps [S, Nsample, H, nu] the step's noise and the
+    mean reward [S]: the S·N samples go out in one rollout, each from its
+    own seed's reset state, and each seed's statistics are its own
+    (``per_seed``)."""
     if cfg.enable_demo:
         check_demo(env, cfg.Hsample)
     # the barycenter is a float32 contraction: keep it out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    state0 = seed_major(states_init, cfg.Nsample)
+
+    def weigh(rewss, bad, Y0s, xref_logpds=None):
+        """One seed's barycenter Ȳ and mean reward, from its rewards
+        [N, H], flags [N], samples [N, H, nu] (and demo log-densities)."""
+        logp0, valid, rew_mean, rew_std = standardized_rewards(
+            rewss, bad, cfg.temp_sample)
+        if xref_logpds is not None:
+            logp0 = fuse_demo(logp0, xref_logpds, rew_mean, rew_std,
+                              env.rew_xref, cfg.temp_sample)
+        return barycenter(masked_softmax(logp0, valid), Y0s), rew_mean
 
     def reverse_once(Ybar_i: torch.Tensor, i: int, eps: torch.Tensor):
         abar = sched.alphas_bar[i]
         Yi = Ybar_i * torch.sqrt(abar)
-        Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i, -1.0, 1.0)
-
-        if cfg.enable_demo:
-            rewss, bad, xref_logpds = rollout_rewards_cuda(
-                env, state_init, Y0s, demo=True)
-        else:
-            rewss, bad = rollout_rewards_cuda(env, state_init, Y0s)
-        logp0, valid, rew_mean, rew_std = standardized_rewards(
-            rewss, bad, cfg.temp_sample)
-
-        if cfg.enable_demo:
-            # the max over every sample, flagged ones included
-            xref_logpds = xref_logpds - xref_logpds.max()
-            logpdemo = (xref_logpds + env.rew_xref - rew_mean) / rew_std \
-                / cfg.temp_sample
-            logp0 = torch.where(logpdemo > logp0, logpdemo, logp0)
-            lstd = logp0.std(correction=0)
-            lstd = torch.where(lstd < 1e-4, torch.ones_like(lstd), lstd)
-            logp0 = (logp0 - logp0.mean()) / lstd / cfg.temp_sample
-
-        weights = masked_softmax(logp0, valid)
-        Ybar = torch.einsum("n,nij->ij", weights, Y0s)
+        Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i[:, None], -1.0,
+                          1.0)
+        S, N = Y0s.shape[:2]
+        out = rollout_rewards_cuda(env, state0, Y0s.reshape(
+            (S * N,) + Y0s.shape[2:]), demo=cfg.enable_demo)
+        Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
+                             out[1].reshape(S, N), Y0s,
+                             *[o.reshape(S, N) for o in out[2:]])
 
         score = (-Yi + torch.sqrt(abar) * Ybar) / (1.0 - abar)
         Yim1 = (Yi + (1.0 - abar) * score) / torch.sqrt(sched.alphas[i])
-        return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rew_mean
+        return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rew
 
     return reverse_once
 
+
+def make_reverse_once(env, cfg: MBDConfig, state_init,
+                      sched: DiffusionSchedule) -> Callable:
+    """One seed's reverse step, ``reverse_once(Ybar_i, i, eps) →
+    (Ybar_{i−1}, mean reward)`` with Ybar_i [H, nu] and eps [Nsample, H,
+    nu]: ``make_reverse_once_batch`` at S = 1."""
+    step = make_reverse_once_batch(env, cfg, [state_init], sched)
+
+    def reverse_once(Ybar_i, i, eps):
+        return tuple(o[0] for o in step(Ybar_i[None], i, eps[None]))
+
+    return reverse_once
+
+
+def per_seed(fn: Callable, *args):
+    """``fn`` on each seed's slice of the args (leading axis S), its
+    outputs stacked. Each seed's statistics then reduce the serial plan's
+    shapes, so seed s of a batch is the same seed planned alone bit for
+    bit on the card too, where a reduction over the rows of [S, N] may sum
+    in another order than one over [N]."""
+    outs = [fn(*(a[s] for a in args)) for s in range(args[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def seed_major(states, N: int) -> SimpleNamespace:
+    """Per-sample initial states [nq, S·N] / [nv, S·N] from S seeds' reset
+    states: sample s·N + n starts from seed s's (JAX's
+    ``jnp.repeat(q.T, N, axis=1)``)."""
+    def rows(xs):
+        return torch.stack(xs).T.repeat_interleave(N, dim=1).contiguous()
+
+    return SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=rows([s.pipeline_state.q for s in states]),
+        qd=rows([s.pipeline_state.qd for s in states])))
+
+
+# One seed's statistics, each the counterpart of JAX plan_batch's over
+# axis 1 (mbd_tpu/planners/mbd.py:409-438).
 
 def standardized_rewards(rewss: torch.Tensor, bad: torch.Tensor,
                          temp: float):
@@ -142,9 +189,27 @@ def standardized_rewards(rewss: torch.Tensor, bad: torch.Tensor,
     worst = torch.where(torch.isfinite(worst), worst, torch.zeros_like(worst))
     rews = torch.where(valid, rews, worst)
     rew_mean = rews.mean()
-    rew_std = rews.std(correction=0)
-    rew_std = torch.where(rew_std < 1e-4, torch.ones_like(rew_std), rew_std)
+    rew_std = _std(rews)
     return (rews - rew_mean) / rew_std / temp, valid, rew_mean, rew_std
+
+
+def _std(x: torch.Tensor) -> torch.Tensor:
+    """The population std, 1 where under 1e-4."""
+    std = x.std(correction=0)
+    return torch.where(std < 1e-4, torch.ones_like(std), std)
+
+
+def fuse_demo(logp0, xref_logpds, rew_mean, rew_std, rew_xref: float,
+              temp: float) -> torch.Tensor:
+    """The demo fusion: each rollout's demo log-density, shifted so that
+    the best is 0 (the max over every sample, flagged ones included),
+    plus ``rew_xref``, standardized with the reward's mean and std into
+    logp_demo; the larger of the two log-weights, standardized again and
+    divided by ``temp`` a second time."""
+    xref_logpds = xref_logpds - xref_logpds.max()
+    logpdemo = (xref_logpds + rew_xref - rew_mean) / rew_std / temp
+    logp0 = torch.where(logpdemo > logp0, logpdemo, logp0)
+    return (logp0 - logp0.mean()) / _std(logp0) / temp
 
 
 def masked_softmax(logp0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -156,10 +221,16 @@ def masked_softmax(logp0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                        torch.full_like(weights, 1.0 / logp0.shape[0]))
 
 
+def barycenter(weights: torch.Tensor, Y0s: torch.Tensor) -> torch.Tensor:
+    """Σₙ wₙ·Y0sₙ: weights [N], Y0s [N, H, nu]."""
+    return torch.einsum("n,nij->ij", weights, Y0s)
+
+
 def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
          chunk_size: int = 0, progress_fn=None,
          eps: Optional[torch.Tensor] = None) -> MBDResult:
-    """Run the full reverse diffusion on ``env.device``.
+    """Run the full reverse diffusion of one seed on ``env.device``:
+    ``plan_batch`` at S = 1, without the seed axis.
 
     ``generator`` draws the reset state (unless ``state_init`` is given)
     and then every step's noise. ``progress_fn(step, mean_reward)`` is
@@ -167,54 +238,90 @@ def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
     ``eps`` [Ndiffuse−1, Nsample, Hsample, nu] replaces the drawn noise,
     step by step in the order the steps run.
     """
+    res = plan_batch(env, cfg, [generator],
+                     None if state_init is None else [state_init],
+                     chunk_size, progress_fn,
+                     None if eps is None else eps[:, None])
+    return MBDResult(Ybars=res.Ybars[0], rews_trace=res.rews_trace[0],
+                     final_reward=res.final_reward[0],
+                     final_diverged=bool(res.final_diverged[0]))
+
+
+def draw_eps(generators: Sequence[torch.Generator], shape,
+             device) -> torch.Tensor:
+    """One step's noise of every seed, [S, *shape]: each seed's from its
+    own generator, in seed order, as its serial plan draws it."""
+    return torch.stack([torch.randn(shape, generator=g, device=device)
+                        for g in generators])
+
+
+def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
+               states_init=None, chunk_size: int = 0, progress_fn=None,
+               eps: Optional[torch.Tensor] = None) -> MBDResult:
+    """S = len(generators) independent plans in one batch on
+    ``env.device``: every step rolls the S·Nsample samples out in one
+    launch, and the final selection takes one more.
+
+    Each generator draws its seed's reset state first (unless
+    ``states_init``, a sequence of S states, is given); at each step every
+    seed then draws its noise from its own generator, in seed order, so
+    seed s sees exactly the noise of ``plan(env, cfg, generators[s])``.
+    ``eps`` [Ndiffuse−1, S, Nsample, Hsample, nu] replaces the draws.
+    ``progress_fn(step, mean reward over the seeds)`` as in ``plan``.
+    Returns an MBDResult with a leading seed axis.
+    """
     device = env.device
-    if state_init is None:
-        state_init = env.reset(generator)
+    S = len(generators)
+    if states_init is None:
+        states_init = [env.reset(g) for g in generators]
+    if len(states_init) != S:
+        raise ValueError(f"{len(states_init)} initial states for {S} seeds")
     sched = make_schedule(cfg.Ndiffuse, cfg.beta0, cfg.betaT, device=device)
-    reverse_once = make_reverse_once(env, cfg, state_init, sched)
+    reverse_once = make_reverse_once_batch(env, cfg, states_init, sched)
     nu = env.action_size
     shape = (cfg.Nsample, cfg.Hsample, nu)
-    if eps is not None and tuple(eps.shape) != (cfg.Ndiffuse - 1,) + shape:
-        raise ValueError(f"eps must be [{cfg.Ndiffuse - 1}, "
-                         f"{cfg.Nsample}, {cfg.Hsample}, {nu}]")
+    T = cfg.Ndiffuse - 1
+    if eps is not None and tuple(eps.shape) != (T, S) + shape:
+        raise ValueError(f"eps must be [{T}, {S}, {cfg.Nsample}, "
+                         f"{cfg.Hsample}, {nu}]")
 
-    Ybar = torch.zeros((cfg.Hsample, nu), device=device)
+    Ybar = torch.zeros((S, cfg.Hsample, nu), device=device)
     Ybars, rews_trace = [], []
-    steps = range(cfg.Ndiffuse - 1, 0, -1)
-    for t, i in enumerate(steps):
-        e = eps[t] if eps is not None else torch.randn(
-            shape, generator=generator, device=device)
+    for t, i in enumerate(range(cfg.Ndiffuse - 1, 0, -1)):
+        e = eps[t] if eps is not None else draw_eps(generators, shape,
+                                                    device)
         Ybar, rew = reverse_once(Ybar, i, e)
         Ybars.append(Ybar)
         rews_trace.append(rew)
-        done = t + 1
         if progress_fn is not None and chunk_size > 0 and (
-                done % chunk_size == 0 or done == len(steps)):
-            progress_fn(done, float(rew))
-    Ybars = torch.stack(Ybars)
-    rews_trace = torch.stack(rews_trace)
-    final_reward, final_diverged = evaluate_final(env, state_init, Ybars)
-    return MBDResult(Ybars=Ybars, rews_trace=rews_trace,
+                (t + 1) % chunk_size == 0 or t + 1 == T):
+            progress_fn(t + 1, float(rew.mean()))
+    Ybars = torch.stack(Ybars, dim=1)                    # [S, T, H, nu]
+    final_reward, final_diverged = evaluate_final(env, states_init, Ybars)
+    return MBDResult(Ybars=Ybars, rews_trace=torch.stack(rews_trace, dim=1),
                      final_reward=final_reward,
                      final_diverged=final_diverged)
 
 
-def evaluate_final(env, state_init, plans: torch.Tensor):
-    """The final plan ``plans[-1]``'s mean reward through the same rollout,
-    and whether it is flagged. When its own rollout is flagged, the best
-    clean iterate of ``plans`` [T, H, nu] takes its place (in place) and
-    its reward is returned; with no clean iterate, the flagged reward and
-    True. The first wait on the device of a plan."""
-    final_rews, final_bad = rollout_rewards_cuda(env, state_init, plans[-1:])
-    final_reward = final_rews[0].mean()
-    if not bool(final_bad[0]):
-        return final_reward, False
-    cand_rews, cand_bad = rollout_rewards_cuda(env, state_init, plans)
-    cand = cand_rews.mean(dim=-1)
-    cand = torch.where((cand_bad == 0) & torch.isfinite(cand), cand,
-                       torch.full_like(cand, -float("inf")))
-    best = int(torch.argmax(cand))
-    if not bool(torch.isfinite(cand[best])):
-        return final_reward, True
-    plans[-1] = plans[best]
-    return cand[best], False
+def evaluate_final(env, states_init, plans: torch.Tensor):
+    """The final selection of S plans at once (JAX's plan_batch,
+    mbd_tpu/planners/mbd.py:560-598): every iterate of ``plans``
+    [S, T, H, nu] in one rollout of S·T samples, each from its seed's
+    reset state. Per seed, the last iterate when its own rollout is clean,
+    else the best clean one (written into ``plans[:, -1]``); with none
+    clean, the last and True. Returns (final_reward [S], final_diverged
+    [S] bool)."""
+    S, T = plans.shape[:2]
+    rews, bad = rollout_rewards_cuda(env, seed_major(states_init, T),
+                                     plans.reshape((S * T,)
+                                                   + plans.shape[2:]))
+    cand = rews.mean(dim=-1).reshape(S, T)
+    feasible = (bad.reshape(S, T) == 0) & torch.isfinite(cand)
+    masked = torch.where(feasible, cand, torch.full_like(cand,
+                                                         -float("inf")))
+    last = torch.full((S,), T - 1, device=plans.device)
+    choose = torch.where(feasible[:, -1], last, torch.argmax(masked, dim=1))
+    choose = torch.where(feasible.any(dim=1), choose, last)
+    seeds = torch.arange(S, device=plans.device)
+    plans[:, -1] = plans[seeds, choose]
+    return cand[seeds, choose], ~feasible[seeds, choose]

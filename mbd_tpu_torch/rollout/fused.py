@@ -5,7 +5,8 @@ Rolls Nsample control sequences out over the horizon and scores them with
 the env's ``reward_qs_b`` and, for a demo, its ``traj_xref_logpd_qs``. On
 the CPU this is the planner's rollout; on the card it is the oracle the
 CUDA kernel (``ops/rollout_cuda.py``) is held against, and the planner
-never calls it there.
+never calls it there. ``states_from_qs`` turns a rollout's trace into
+stacked link poses, for the viewer.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..envs.physics import PipelineState, X, Xd
 from ..sim import batched as BT
 
 # Calls of rollout_rewards on CUDA tensors. The planner's path on the card
@@ -33,6 +35,35 @@ def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
         qs.append(q)
         qds.append(qd)
     return torch.stack(qs), torch.stack(qds), bad
+
+
+def states_from_qs(sys, qs: torch.Tensor,
+                   qds: Optional[torch.Tensor] = None) -> PipelineState:
+    """Stacked PipelineState [H, B, ...] from a batch-last trace qs
+    [H, nq, B] (and qds [H, nv, B]), by one forward-kinematics pass over
+    the H·B states folded into one batch. Without ``qds`` (the CUDA
+    kernel's ``need_qs`` mode gives q only) ``qd`` and the link velocities
+    ``xd`` are None: the viewer reads the link poses ``x`` only."""
+    H, nq, B = qs.shape
+    q_flat = qs.permute(1, 2, 0).reshape(nq, B * H)      # [nq, B·H]
+    if qds is None:
+        kin = BT.fk_b(sys, q_flat)
+        rows = (kin.xpos, kin.xquat)
+    else:
+        out = BT.link_out_b(sys, q_flat,
+                            qds.permute(1, 2, 0).reshape(-1, B * H))
+        rows = (out.xpos, out.xquat, out.vel, out.ang)
+
+    def unfold(r):   # nbody × [k, B·H] → [H, B, nbody − 1, k]
+        arr = torch.stack(r[1:])                         # [nlink, k, B·H]
+        return arr.reshape(arr.shape[:2] + (B, H)).permute(3, 2, 0, 1)
+
+    return PipelineState(
+        q=qs.permute(0, 2, 1),                           # [H, B, nq]
+        qd=None if qds is None else qds.permute(0, 2, 1),
+        x=X(pos=unfold(rows[0]), rot=unfold(rows[1])),
+        xd=None if qds is None else Xd(vel=unfold(rows[2]),
+                                       ang=unfold(rows[3])))
 
 
 def initial_states(sys, state0, N: int):

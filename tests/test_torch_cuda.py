@@ -160,3 +160,74 @@ def test_kernel_layout_reported(card):
                                      * a["threads_per_block"] // 32)
         assert 1 <= a["sms_used"] <= torch.cuda.get_device_properties(
             card).multi_processor_count
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_32_bit_index_overflow(card):
+    """An N·H whose trace index would pass 2³¹ is refused before any
+    launch (a stride-0 view: nothing is allocated)."""
+    env = envs.get_env("hopper", device=card)
+    state0 = env.reset(torch.Generator(card).manual_seed(0))
+    N = rollout_cuda.MAX_INDEX // (50 * env.sys.nq) + 1
+    Y0s = torch.zeros((1, 50, env.action_size), device=card).expand(
+        N, 50, env.action_size)
+    launches = rollout_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="32-bit"):
+        rollout_cuda.rollout_rewards_cuda(env, state0, Y0s)
+    assert rollout_cuda.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,demo", [("hopper", False),
+                                       ("humanoidtrack", True)])
+def test_batch_samples_are_their_own_launch(card, name, demo):
+    """Seeds folded into one launch with per-sample initial states: each
+    seed's rewards, flags (and demo log-densities) equal those of its own
+    launch from its shared state, bit for bit."""
+    from mbd_tpu_torch.planners import mbd
+
+    env = envs.get_env(name, device=card)
+    gens = [torch.Generator(card).manual_seed(s) for s in range(3)]
+    states = [env.reset(g) for g in gens]
+    Y0s = 2 * torch.rand((3, 40, 4, env.action_size), generator=gens[0],
+                         device=card) - 1
+    batch = rollout_cuda.rollout_rewards_cuda(
+        env, mbd.seed_major(states, 40), Y0s.reshape(120, 4, -1), demo=demo)
+    for s in range(3):
+        own = rollout_cuda.rollout_rewards_cuda(env, states[s], Y0s[s],
+                                                demo=demo)
+        for a, b in zip(batch, own):
+            assert torch.equal(a[40 * s:40 * (s + 1)], b), (name, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planner", ["mbd", "mppi", "cem", "cma-es"])
+def test_plan_batch_one_launch_per_step(card, planner):
+    """plan_batch launches the kernel once per step for all seeds and once
+    for the final selection, never the plain engine; seed 0's iterates are
+    its serial plan's bit for bit (each seed's statistics reduce the
+    serial shapes), its final reward to 1e-6 (the mean over H of one row
+    of the selection's [S·T, H] against the serial plan's [H])."""
+    from mbd_tpu_torch.planners import mbd
+    from mbd_tpu_torch.planners import path_integral as pi
+    from mbd_tpu_torch.rollout import fused
+
+    env = envs.get_env("hopper", device=card)
+    if planner == "mbd":
+        mod, cfg = mbd, mbd.MBDConfig(Nsample=256, Hsample=8, Ndiffuse=6)
+    else:
+        mod, cfg = pi, pi.PathIntegralConfig(update_method=planner,
+                                             Nsample=256, Hsample=8,
+                                             Nrefine=6)
+    rollout_cuda.LAUNCHES, fused.CUDA_CALLS = 0, 0
+    res = mod.plan_batch(env, cfg, [torch.Generator(card).manual_seed(s)
+                                    for s in range(4)])
+    torch.cuda.synchronize()
+    assert rollout_cuda.LAUNCHES == 5 + 1 and fused.CUDA_CALLS == 0
+    assert res.final_reward.shape == (4,)
+    serial = mod.plan(env, cfg, torch.Generator(card).manual_seed(0))
+    plans = res.Ybars if planner == "mbd" else res.mu_0ts
+    assert torch.equal(plans[0], serial.Ybars if planner == "mbd"
+                       else serial.mu_0ts)
+    assert abs(float(res.final_reward[0])
+               - float(serial.final_reward)) <= 1e-6

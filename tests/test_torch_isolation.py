@@ -1,0 +1,35 @@
+"""The port stands alone: importing every module of ``mbd_tpu_torch`` and
+``chip_smoke.py`` and ``seed_quality.py`` loads neither JAX nor anything of the reference package
+``mbd_tpu`` (the card's machine has no JAX)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import mbd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mbd_tpu_torch.__path__,
+                                               "mbd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke, seed_quality
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "mbd_tpu" or m.startswith("mbd_tpu."))
+print(len(names), " ".join(names))
+print("LOADED", " ".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                         capture_output=True, text=True, check=True).stdout
+    listed, loaded = out.splitlines()[-2:]
+    for module in ("mbd_tpu_torch.cli.run_mbd", "mbd_tpu_torch.viz.html",
+                   "mbd_tpu_torch.rollout.replay",
+                   "mbd_tpu_torch.planners.mbd"):
+        assert module in listed.split()
+    assert loaded.split() == ["LOADED"], loaded

@@ -117,15 +117,19 @@ def test_plan_matches_jax(method):
     assert res.final_diverged is False and not bool(jres.final_diverged)
 
 
-def _flag_final(monkeypatch, flag_all):
-    """Flag the final plan's own rollout (the one call at N = 1) and, with
-    ``flag_all``, every candidate's."""
+def _flag_final(monkeypatch, flag_all, iterates):
+    """Flag the final plan's own rollout (the last sample of the final
+    selection's call, the one that rolls the ``iterates`` refined means
+    out) and, with ``flag_all``, every sample of every call."""
     real = mbd.rollout_rewards_cuda
 
     def flagged(env, state0, Y0s, *args, **kwargs):
         rews, bad = real(env, state0, Y0s, *args, **kwargs)
-        if Y0s.shape[0] == 1 or flag_all:
+        if flag_all:
             bad = torch.ones_like(bad)
+        elif Y0s.shape[0] == iterates:
+            bad = bad.clone()
+            bad[-1] = 1
         return rews, bad
 
     monkeypatch.setattr(mbd, "rollout_rewards_cuda", flagged)
@@ -139,12 +143,12 @@ def test_plan_falls_back_to_best_clean_iterate(method, monkeypatch):
     cfg = pi.PathIntegralConfig(update_method=method, Nsample=8, Hsample=4,
                                 Nrefine=5, cem_elite=3)
     clean = pi.plan(env, cfg, torch.Generator().manual_seed(2))
-    _flag_final(monkeypatch, flag_all=False)
+    _flag_final(monkeypatch, flag_all=False, iterates=cfg.Nrefine - 1)
     res = pi.plan(env, cfg, torch.Generator().manual_seed(2))
     assert torch.equal(res.rews_trace, clean.rews_trace)
     state = env.reset(torch.Generator().manual_seed(2))
     rews, _ = pi.rollout_rewards_cuda(env, state, clean.mu_0ts)
-    best = int(torch.argmax(rews.mean(dim=-1)))
+    best = int(torch.argmax(rews[:-1].mean(dim=-1)))
     assert torch.equal(res.mu_0ts[-1], clean.mu_0ts[best])
     assert torch.equal(res.mu_0ts[:-1], clean.mu_0ts[:-1])
     assert float(res.final_reward) == float(rews[best].mean())
@@ -156,7 +160,7 @@ def test_plan_reports_no_clean_iterate(monkeypatch):
     ``final_diverged``."""
     env = envs.get_env("cartpole", device="cpu")
     cfg = pi.PathIntegralConfig(Nsample=8, Hsample=4, Nrefine=3)
-    _flag_final(monkeypatch, flag_all=True)
+    _flag_final(monkeypatch, flag_all=True, iterates=cfg.Nrefine - 1)
     res = pi.plan(env, cfg, torch.Generator().manual_seed(2))
     assert res.final_diverged is True
     assert torch.isfinite(res.final_reward)
