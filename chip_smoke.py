@@ -73,15 +73,32 @@ Phases, each of which raises on failure (exit code 1):
 4. the CLI, ``python -m mbd_tpu_torch.cli.run_mbd --env_name hopper
    --mode single`` into a temporary directory (in this process): its
    mu_0ts.npy and rollout.html, 101 launches of which one with the trace;
-   then the replay of the reference's committed 8-seed plans of every
-   harness directory under ``results/``, one launch each from JAX's resets
-   (``mbd_tpu_torch/rollout/replay.py``), each seed within its env's
-   tolerance but for the seeds logged as faults; then each directory's
-   plans from 32 one-ulp perturbations of the resets, one launch, whose
-   spread is the humanoids' tolerance and must stay within it;
-5. one JSON line with the kernels' numbers (with each baseline's
-   launches, final reward and wall, and each batched path's), then the
-   device line.
+   then ``python -m mbd_tpu_torch.cli.vis_diffusion --env_name hopper``
+   on that mu_0ts.npy: render_diffusion.html with 6 ghosts, from 7
+   ``need_qs`` launches; then the replay of the reference's committed
+   8-seed plans of every harness directory under ``results/``, one launch
+   each from JAX's resets (``mbd_tpu_torch/rollout/replay.py``; car2d,
+   analytic, none), each seed within its env's tolerance but for the
+   seeds logged as faults and the envelope-edge seeds, whose flags are
+   accepted and their margins printed; then each directory's plans from
+   32 one-ulp perturbations of the resets, one launch, whose spread is the
+   humanoids' tolerance and must stay within it;
+5. checkpoint and resume on hopper at 2048 / 50 / 100 with chunks of 10:
+   the plan stopped after chunk 3 and resumed in 99 − 30 + 1 launches,
+   equal bit for bit to the plan without a checkpoint;
+6. car2d on the analytic path, which launches no kernel: one 2048 × 50
+   rollout timed; the demo plan at 2048 / 50 / 100, seed 0, to within 0.2
+   of the goal and a final reward above 0.05; the plan without the demo
+   and MPPI, CEM and CMA-ES, finite; ``plan_batch`` of 8 seeds with the
+   demo, its mean reward and demo log-density within the two-sample bound
+   of ``docs/RESULTS.json``'s, seed 0 its serial plan bit for bit;
+7. ``blackbox.bbo.optimize`` on Ackley, Rastrigin and Levy at dim 800,
+   6 seeds each, each mean within the two-sample bound of
+   ``docs/RESULTS_BLACKBOX.json``'s;
+8. one JSON line with the analytic path's numbers and each phase's wall,
+   one with the kernels' numbers (with each baseline's launches, final
+   reward and wall, each batched path's, and the viewer's and the
+   resume's launches), then the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -617,21 +634,18 @@ def batch_checks(torch, rc, mbd, env, cfg, S, n_strided=64):
     return ms_b, ms_1, layout, err
 
 
-def drive_cli(torch, rc, fused, envs, gpu):
+def drive_cli(torch, rc, fused, envs, gpu, out):
     """``python -m mbd_tpu_torch.cli.run_mbd --env_name hopper --mode
-    single`` into a temporary directory, run in this process so that the
+    single`` into the directory ``out``, run in this process so that the
     counts can be read: mu_0ts.npy [99, 50, 3], a rollout.html of 50
     frames with the model's geoms, 99 + 1 plan launches and the viewer's
     trace from one ``need_qs`` launch, no plain-engine call."""
     import runpy
-    import shutil
-    import tempfile
 
     import numpy as np
 
     from mbd_tpu_torch.viz import html
 
-    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     argv = sys.argv
     sys.argv = ["run_mbd", "--env_name", "hopper", "--mode", "single",
                 "--results_dir", out]
@@ -650,7 +664,6 @@ def drive_cli(torch, rc, fused, envs, gpu):
             page = f.read()
     finally:
         sys.argv = argv
-        shutil.rmtree(out)
     data = json.loads(re.search(r"const DATA = (.*);\n", page).group(1))
     geoms = html._system_dict(envs.get_env("hopper", device="cuda").sys)
     print(f"cli hopper single: mu_0ts {list(mu.shape)}, rollout.html "
@@ -676,6 +689,7 @@ def drive_replay(torch, envs, rc, gpu):
     which must not pass it; the other envs' spread is printed beside
     their tolerance, JAX's own drift from the TPU to a CPU. Returns the
     largest gap and the spread per directory."""
+    from mbd_tpu_torch.envs.physics import PhysicsEnv
     from mbd_tpu_torch.rollout import replay
 
     gaps, missed, wide = {}, [], []
@@ -687,17 +701,21 @@ def drive_replay(torch, envs, rc, gpu):
         gap = rews - ref["rewards"]
         faults = sorted(replay.misses(directory, rews, bad, ref))
         logged = replay.faults(directory, "cuda")
+        edge = replay.edge(directory, "cuda", rews, bad, ref)
         spread, flips = replay.spread(env, directory)
         tol = replay.tolerance(directory)
         print(f"replay {directory}: {launches} launch, kernel − "
               f"committed per seed {[f'{g:.3g}' for g in gap]} (atol "
               f"{tol:.3g}), flags {bad.tolist()} (committed "
               f"{ref['diverged'].tolist()}); missed: {faults} (logged "
-              f"faults {sorted(logged)}); one-ulp spread {spread:.4g} with "
-              f"{flips} flag flips of 256", flush=True)
-        if launches != 1:
+              f"faults {sorted(logged)}; on the envelope's edge, flagged "
+              f"by the margin first measured: {edge}); one-ulp spread "
+              f"{spread:.4g} with {flips} flag flips of 256", flush=True)
+        # car2d, an analytic env, rolls out without the kernel
+        if launches != int(isinstance(env, PhysicsEnv)):
             raise AssertionError(f"replay {directory}: {launches} launches")
-        missed += [(directory, s) for s in faults if s not in logged]
+        missed += [(directory, s) for s in faults
+                   if s not in logged and s not in edge]
         if name in replay.SPREAD_SET and not spread <= tol:
             wide.append((directory, spread))
         gaps[directory] = dict(max_gap=float(abs(gap).max()), spread=spread)
@@ -706,6 +724,249 @@ def drive_replay(torch, envs, rc, gpu):
     if wide:
         raise AssertionError(f"replay: spreads {wide} pass the tolerance")
     return gaps
+
+
+def drive_vis_diffusion(torch, rc, fused, gpu, out):
+    """``python -m mbd_tpu_torch.cli.vis_diffusion --env_name hopper`` on
+    the mu_0ts.npy the CLI phase wrote into ``out``, in this process:
+    render_diffusion.html with the last iterate's 50 frames and 6 ghosts of
+    50, from 7 ``need_qs`` launches and no other, no plain-engine call."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = ["vis_diffusion", "--env_name", "hopper", "--results_dir",
+                out]
+    rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.QS_LAUNCHES = 0
+    fused.CUDA_CALLS = 0
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("mbd_tpu_torch.cli.vis_diffusion",
+                         run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches=rc.LAUNCHES, need_qs=rc.QS_LAUNCHES,
+                      plain_calls=fused.CUDA_CALLS)
+        with open(os.path.join(out, "hopper", "render_diffusion.html")) as f:
+            page = f.read()
+    finally:
+        sys.argv = argv
+    data = json.loads(re.search(r"const DATA = (.*);\n", page).group(1))
+    ghosts = [len(g) for g in data["ghosts"]]
+    print(f"vis_diffusion hopper: render_diffusion.html {len(page)} bytes, "
+          f"{len(data['frames'])} frames and ghosts of {ghosts} frames, "
+          f"{counts}; wall {wall:.2f} s on {gpu}", flush=True)
+    if len(data["frames"]) != 50 or ghosts != [50] * 6:
+        raise AssertionError("vis_diffusion: render_diffusion.html")
+    if counts != dict(launches=7, need_qs=7, plain_calls=0):
+        raise AssertionError(f"vis_diffusion: launches {counts}")
+    return dict(counts, wall_s=wall)
+
+
+class Interrupt(Exception):
+    """Raised from ``progress_fn`` to stop a plan after a chunk."""
+
+
+def drive_checkpoint(torch, envs, rc, fused, mbd, gpu):
+    """Checkpoint and resume on hopper at its recommended config (2048 /
+    50 / 100) with ``chunk_size`` 10, seed 0: the plan without a
+    checkpoint, then with one; then a plan stopped by raising from
+    ``progress_fn`` after chunk 3 and resumed, with the counts set to 0
+    just before the resume and read just after. The checkpointed plan and
+    the resumed one equal the plan without a checkpoint bit for bit, and
+    the resume takes 99 − 30 + 1 launches. Returns the launches, walls and
+    the checkpoint's cost per chunk."""
+    import shutil
+    import tempfile
+
+    cfg, chunk, stop = mbd.recommended_config("hopper"), 10, 30
+    env = envs.get_env("hopper", device="cuda")
+    out = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mbd.plan(env, cfg, torch.Generator("cuda").manual_seed(0),
+                       chunk_size=chunk, **kw)
+        float(res.final_reward)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def stop_after(t, rew):
+        if t == stop:
+            raise Interrupt
+
+    try:
+        full, wall_full = run()
+        kept, wall_kept = run(checkpoint_path=os.path.join(out, "full"))
+        path = os.path.join(out, "stopped")
+        try:
+            run(checkpoint_path=path, progress_fn=stop_after)
+            raise AssertionError("checkpoint: the plan was not stopped")
+        except Interrupt:
+            pass
+        rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.QS_LAUNCHES = 0
+        fused.CUDA_CALLS = 0
+        resumed, wall_resume = run(checkpoint_path=path)
+        launches, plain_calls = rc.LAUNCHES, fused.CUDA_CALLS
+    finally:
+        shutil.rmtree(out)
+    T = cfg.Ndiffuse - 1
+    same = {name: all(torch.equal(getattr(r, k), getattr(full, k))
+                      for k in ("Ybars", "rews_trace", "final_reward"))
+            for name, r in (("checkpointed", kept), ("resumed", resumed))}
+    per_chunk = (wall_kept - wall_full) / -(-T // chunk)
+    print(f"checkpoint hopper {cfg.Nsample}/{cfg.Hsample}/{cfg.Ndiffuse} "
+          f"chunk {chunk}: final_reward {float(full.final_reward):.6f}; "
+          f"equal to the plan without a checkpoint bit for bit: {same}; "
+          f"resumed after step {stop} with {launches} kernel launches, "
+          f"{plain_calls} plain-engine calls on CUDA; wall {wall_full:.2f} s "
+          f"without a checkpoint, {wall_kept:.2f} s with one "
+          f"({per_chunk * 1e3:.1f} ms a chunk), {wall_resume:.2f} s to "
+          f"resume, on {gpu}", flush=True)
+    if not all(same.values()):
+        raise AssertionError("checkpoint: the plans differ")
+    if launches != T - stop + 1 or plain_calls != 0:
+        raise AssertionError(f"checkpoint: {launches} launches on resume, "
+                             f"not {T - stop + 1}")
+    return dict(launches=launches, wall_s=wall_full, wall_ckpt_s=wall_kept,
+                wall_resume_s=wall_resume, ckpt_ms_per_chunk=per_chunk * 1e3)
+
+
+def drive_car2d(torch, envs, rc, fused, mbd, pi, sq, gpu):
+    """car2d on the analytic path, which launches no rollout kernel (the
+    counts set to 0 before each plan and read after must stay 0): one
+    2048 × 50 rollout of the demo path timed; ``mbd.plan`` at
+    ``recommended_config("car2d", MBDConfig(enable_demo=True))`` (2048 /
+    50 / 100), seed 0, whose final plan passes within 0.2 of the goal with
+    a final reward above 0.05 (the reference's own test,
+    tests/test_car2d_planner.py:49-65); the plan without the demo and the
+    three baselines at ``path_integral.recommended_config("car2d")``, each
+    finite; ``plan_batch`` of seeds 0–7 with the demo, whose mean reward
+    and mean demo log-density lie within the two-sample bound of
+    ``docs/RESULTS.json``'s ``car2d+demo`` and whose seed 0 is the serial
+    plan bit for bit."""
+    from mbd_tpu_torch.rollout.rollout import rollout_us
+
+    env = envs.get_env("car2d", device="cuda")
+    state0 = env.reset(None)
+    out = {}
+    Y = 2.0 * torch.rand((2048, 50, 2), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2)) - 1
+    batch = mbd.batch_states(env, [state0], 2048)
+    out["rollout_ms"], _ = time_ms(torch, lambda: mbd.rollout_batch(
+        env, batch, Y, demo=True), 3)
+    print(f"car2d: one 2048×50 rollout with the demo log-density, "
+          f"{out['rollout_ms']:.3f} ms (CUDA events, mean of 3) on {gpu}",
+          flush=True)
+
+    def counted(label, fn):
+        rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.QS_LAUNCHES = 0
+        fused.CUDA_CALLS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        rewards = res.final_reward.reshape(-1).tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"car2d {label}: final reward {[round(r, 4) for r in rewards]}"
+              f", diverged {res.final_diverged}, {rc.LAUNCHES} kernel "
+              f"launches, {fused.CUDA_CALLS} plain-engine calls; wall "
+              f"{wall:.2f} s on {gpu}", flush=True)
+        if rc.LAUNCHES or fused.CUDA_CALLS:
+            raise AssertionError(f"car2d {label}: the analytic path "
+                                 "launched the rollout kernel")
+        if not all(math.isfinite(r) for r in rewards) or bool(
+                torch.as_tensor(res.final_diverged).any()):
+            raise AssertionError(f"car2d {label}: not finite")
+        return res, wall
+
+    cfg = mbd.recommended_config("car2d", mbd.MBDConfig(enable_demo=True))
+    serial, out["demo_wall_s"] = counted("+demo 2048/50/100 seed 0", lambda:
+                                         mbd.plan(env, cfg, torch.Generator(
+                                             "cuda").manual_seed(0)))
+    _, xs = rollout_us(env, state0, serial.Ybars[-1])
+    closest = float((xs[:, :2] - env.xg[:2]).norm(dim=-1).min())
+    out["demo_reward"] = float(serial.final_reward)
+    out["demo_closest"] = closest
+    print(f"  the final plan passes {closest:.4f} from the goal (< 0.2 "
+          f"required), final reward {out['demo_reward']:.4f} (> 0.05 "
+          "required)", flush=True)
+    if not (closest < 0.2 and out["demo_reward"] > 0.05):
+        raise AssertionError("car2d + demo: the goal is not reached")
+    plain, out["no_demo_wall_s"] = counted(
+        "without the demo 2048/50/100 seed 0", lambda: mbd.plan(
+            env, mbd.recommended_config("car2d"),
+            torch.Generator("cuda").manual_seed(0)))
+    out["no_demo_reward"] = float(plain.final_reward)
+    out["baselines"] = {}
+    for method in BASELINES:
+        pcfg = pi.recommended_config("car2d", pi.PathIntegralConfig(
+            update_method=method))
+        res, wall = counted(f"{method} {pcfg.Nsample}/{pcfg.Hsample}/"
+                            f"{pcfg.Nrefine} seed 0", lambda: pi.plan(
+                                env, pcfg, torch.Generator(
+                                    "cuda").manual_seed(0)))
+        out["baselines"][method] = dict(final_reward=float(res.final_reward),
+                                        wall_s=wall)
+    gens = [torch.Generator("cuda").manual_seed(s) for s in range(8)]
+    res, out["batch_wall_s"] = counted("+demo plan_batch seeds 0–7",
+                                       lambda: mbd.plan_batch(env, cfg, gens))
+    _, xs = rollout_us(env, mbd.batch_states(env, [state0] * 8, 1),
+                       res.Ybars[:, -1])
+    logpd = env.eval_xref_logpd(xs).tolist()
+    out["batch"] = check_bound(sq, "car2d + demo", res.final_reward.tolist(),
+                               "car2d+demo")
+    ref = sq.reference("car2d+demo")
+    b = sq.bound(ref["xref_logpd_mean"], ref["xref_logpd_std"], logpd)
+    print(f"  car2d + demo logpd: 8-seed mean {b['mean']:.4f} ± "
+          f"{b['std']:.4f} against JAX's {b['ref_mean']:.4f} ± "
+          f"{b['ref_std']:.4f}: |Δ| {abs(b['mean'] - b['ref_mean']):.4f}, "
+          f"bound {b['bound']:.4f}", flush=True)
+    if not b["ok"]:
+        raise AssertionError("car2d + demo: the logpd mean is outside the "
+                             "bound")
+    out["batch"]["logpd_mean"], out["batch"]["logpd_std"] = b["mean"], \
+        b["std"]
+    same = torch.equal(res.Ybars[0], serial.Ybars) and torch.equal(
+        res.rews_trace[0], serial.rews_trace)
+    print(f"  seed 0 of the batch is its serial plan bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("car2d: seed 0 of the batch is not its serial "
+                             "plan")
+    return out
+
+
+def drive_bbo(torch, sq, gpu):
+    """``bbo.optimize`` on the card for Ackley, Rastrigin and Levy at dim
+    800, Nsample 64, Ndiffuse 100, seeds 0–5: each mean final J within
+    3·√((σ_JAX² + σ²)/6) of ``docs/RESULTS_BLACKBOX.json``; no rollout
+    kernel runs."""
+    from mbd_tpu_torch.blackbox import bbo
+
+    with open(os.path.join(ROOT, "docs", "RESULTS_BLACKBOX.json")) as f:
+        ref = json.load(f)["bbo"]
+    out = {}
+    for fn_name in ("Ackley", "Rastrigin", "Levy"):
+        cfg = bbo.BBOConfig(fn_name=fn_name, dim=800, Nsample=64,
+                            Ndiffuse=100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finals = [float(bbo.optimize(cfg, torch.Generator(
+            "cuda").manual_seed(s), device="cuda").J_trace[-1])
+            for s in range(6)]
+        wall = time.perf_counter() - t0
+        r = ref[fn_name]
+        b = sq.bound(r["J_final_mean"], r["J_final_std"], finals)
+        print(f"bbo {fn_name} dim 800, 6 seeds: J_final {b['mean']:.4f} ± "
+              f"{b['std']:.4f} against JAX's {b['ref_mean']:.4f} ± "
+              f"{b['ref_std']:.4f}: |Δ| {abs(b['mean'] - b['ref_mean']):.4f},"
+              f" bound {b['bound']:.4f}; wall {wall:.2f} s on {gpu}",
+              flush=True)
+        if not b["ok"]:
+            raise AssertionError(f"bbo {fn_name}: outside the bound")
+        out[fn_name] = dict(mean=b["mean"], std=b["std"], wall_s=wall)
+    return out
 
 
 def main() -> int:
@@ -914,9 +1175,35 @@ def main() -> int:
                                                  name, cfg, gpu)
     pool.shutdown()
 
-    # 4. the CLI, and the replay of the reference's committed plans
-    stats["hopper"]["cli"] = drive_cli(torch, rc, fused, envs, gpu)
-    replay_gaps = drive_replay(torch, envs, rc, gpu)
+    # 4. the CLI and the viewer of its denoising process, the replay of
+    # the reference's committed plans, the checkpoint, car2d and bbo, each
+    # phase's wall printed
+    import shutil
+    import tempfile
+
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        walls[name] = time.perf_counter() - t0
+        print(f"phase {name}: {walls[name]:.1f} s ({elapsed()})", flush=True)
+        return out
+
+    cli_out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        stats["hopper"]["cli"] = phase("cli", drive_cli, rc, fused, envs,
+                                       gpu, cli_out)
+        stats["hopper"]["vis_diffusion"] = phase(
+            "vis_diffusion", drive_vis_diffusion, rc, fused, gpu, cli_out)
+    finally:
+        shutil.rmtree(cli_out)
+    replay_gaps = phase("replay", drive_replay, envs, rc, gpu)
+    stats["hopper"]["checkpoint"] = phase("checkpoint", drive_checkpoint,
+                                          envs, rc, fused, mbd, gpu)
+    analytic = dict(car2d=phase("car2d", drive_car2d, envs, rc, fused, mbd,
+                                pi, sq, gpu),
+                    bbo=phase("bbo", drive_bbo, sq, gpu))
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
 
@@ -928,6 +1215,9 @@ def main() -> int:
         print(f"bound {name} {st['shape']}: {st['operations']} operations, "
               f"{st['bytes']} bytes → {st['bound_ms']:.4f} ms "
               f"({st['bound_by']}); kernel {st['ms']:.3f} ms", flush=True)
+    # the analytic path (car2d, bbo) launches no kernel: its numbers and
+    # every phase's wall on a line of their own
+    print(json.dumps(dict(analytic, phase_walls_s=walls)))
     order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",
@@ -942,8 +1232,12 @@ def main() -> int:
         # seed, max |Δ| against the plain version at S·N, the seeds' mean
         # and std, and whether the mean held the bound against JAX's
         "plan_batch": stats[name]["plan_batch"],
-        # the CLI's single run: its launches, need_qs among them
+        # the CLI's single run: its launches, need_qs among them; the
+        # viewer of its denoising process (need_qs launches); the resume of
+        # a checkpointed plan (launches, walls, cost per chunk)
         "cli": stats[name].get("cli"),
+        "vis_diffusion": stats[name].get("vis_diffusion"),
+        "checkpoint": stats[name].get("checkpoint"),
         # the committed plans replayed: the largest |kernel − committed|,
         # and the largest change one ulp of the resets makes
         "replay": {d: g for d, g in replay_gaps.items()

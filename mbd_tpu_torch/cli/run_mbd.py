@@ -10,7 +10,8 @@
   python -m mbd_tpu_torch.cli.run_mbd --env_name hopper --mode temp  # sweep
 
 ``single`` writes <results_dir>/<env_name>/mu_0ts.npy (the stack of
-denoised means) and rollout.html (the final plan in the viewer);
+denoised means) and rollout.html (the final plan in the viewer; for
+car2d rollout.png, drawn with matplotlib, which only this needs);
 ``seed`` plans --n_seeds seeds, serially or with --batch_seeds in one
 batch; ``temp`` plans the seeds at six temperatures, one batch each, into
 <results_dir>/RESULTS_TEMP.json.
@@ -129,14 +130,32 @@ def run_single(args, render: bool = True) -> float:
         os.makedirs(path, exist_ok=True)
         Ybars = _plans(res)
         np.save(os.path.join(path, "mu_0ts.npy"), Ybars.cpu().numpy())
-        from ..viz import html as vhtml
-
         states = rollout_states(env, state_init, Ybars[-1])
-        page = vhtml.render_states(env.sys, states, dt=env.dt,
-                                   title=f"{args.env_name} ({args.algo})")
-        with open(os.path.join(path, "rollout.html"), "w") as f:
-            f.write(page)
+        if args.env_name == "car2d":
+            render_car2d(env, state_init, states, args.enable_demo,
+                         os.path.join(path, "rollout.png"))
+        else:
+            from ..viz import html as vhtml
+
+            page = vhtml.render_states(env.sys, states, dt=env.dt,
+                                       title=f"{args.env_name} ({args.algo})")
+            with open(os.path.join(path, "rollout.html"), "w") as f:
+                f.write(page)
     return float(res.final_reward)
+
+
+def render_car2d(env, state_init, states, show_demo: bool, out: str) -> None:
+    """car2d's plan from its start, ``states`` [H, 3], drawn by
+    ``env.render`` into the PNG ``out`` (matplotlib, imported here only)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(1, 1, figsize=(4, 4))
+    xs = torch.cat([state_init.pipeline_state[None], states]).cpu().numpy()
+    env.render(ax, xs, show_demo=show_demo)
+    fig.savefig(out, dpi=120, bbox_inches="tight")
+    plt.close(fig)
 
 
 def plan_seeds(args, cfg, env):

@@ -5,6 +5,9 @@ from .base import Env, State  # noqa: F401
 
 
 def get_env(env_name: str, device=DEFAULT):
+    if env_name == "car2d":
+        from .car2d import Car2d
+        return Car2d(device)
     if env_name == "hopper":
         from .hopper import Hopper
         return Hopper(device)
@@ -33,6 +36,4 @@ def get_env(env_name: str, device=DEFAULT):
     if env_name == "pushT":
         from .pushT import PushT
         return PushT(device)
-    raise NotImplementedError(
-        f"environment {env_name!r} is not ported to mbd_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1, the item \"car2d and the vmap path\")")
+    raise ValueError(f"Unknown environment: {env_name}")

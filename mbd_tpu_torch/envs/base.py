@@ -1,7 +1,8 @@
 """Environment base contract (port of ``mbd_tpu/envs/base.py``).
 
 Every env exposes ``reset(generator) -> State``, ``step(State, action) ->
-State``, ``action_size`` and, for physics envs, ``sys`` / ``dt``.
+State``, ``observation_size``, ``action_size`` and ``device``; physics
+envs also ``sys`` / ``dt``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class Env:
         raise NotImplementedError
 
     def step(self, state: State, action: torch.Tensor) -> State:
+        raise NotImplementedError
+
+    @property
+    def observation_size(self) -> int:
         raise NotImplementedError
 
     @property

@@ -89,6 +89,12 @@ class PhysicsEnv(Env):
     def action_size(self) -> int:
         return self.sys.nu
 
+    @property
+    def observation_size(self) -> int:
+        """The length of ``reset``'s observation (from a throwaway
+        generator)."""
+        return int(self.reset(torch.Generator(self.device)).obs.shape[-1])
+
     def pipeline_init(self, q: torch.Tensor,
                       qd: torch.Tensor) -> PipelineState:
         return make_state(self.sys, q, qd)

@@ -29,6 +29,16 @@ Seed batching (``plan_batch``): S independent plans fold their samples
 into one rollout of S·Nsample samples per step, sample s·N + n starting
 from seed s's reset state; each seed's statistics above are its own.
 
+The rollout is chosen by the env's kind, as JAX's ``default_engine``
+chooses it (mbd_tpu/planners/mbd.py:88-101): a physics env rolls out in
+the CUDA kernel (the torch engine on the CPU); an analytic env (car2d)
+steps all samples as one batch (``rollout/rollout.py::rollout_us``, JAX's
+vmap engine), whose rollouts are never flagged, scores the demo with its
+``eval_xref_logpd`` and takes the last iterate as the final plan.
+
+``plan`` can keep a checkpoint after every chunk of steps and resume
+from it (``checkpoint_path``, JAX's layout).
+
 Every tensor lives on ``env.device`` and the loop never waits on the
 device until the final evaluation. Random numbers come from an explicit
 ``torch.Generator``: ``env.reset`` draws the initial state from it, then
@@ -38,14 +48,18 @@ stream with given tensors (the tests feed JAX's stream through it).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..core.schedule import DiffusionSchedule, make_schedule
+from ..envs.physics import PhysicsEnv
 from ..ops.rollout_cuda import check_demo, rollout_rewards_cuda
+from ..rollout.rollout import eval_us, rollout_us
 
 
 @dataclass
@@ -102,12 +116,12 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
     mean reward [S]: the S·N samples go out in one rollout, each from its
     own seed's reset state, and each seed's statistics are its own
     (``per_seed``)."""
-    if cfg.enable_demo:
+    if cfg.enable_demo and isinstance(env, PhysicsEnv):
         check_demo(env, cfg.Hsample)
     # the barycenter is a float32 contraction: keep it out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state0 = seed_major(states_init, cfg.Nsample)
+    state0 = batch_states(env, states_init, cfg.Nsample)
 
     def weigh(rewss, bad, Y0s, xref_logpds=None):
         """One seed's barycenter Ȳ and mean reward, from its rewards
@@ -125,7 +139,7 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
         Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i[:, None], -1.0,
                           1.0)
         S, N = Y0s.shape[:2]
-        out = rollout_rewards_cuda(env, state0, Y0s.reshape(
+        out = rollout_batch(env, state0, Y0s.reshape(
             (S * N,) + Y0s.shape[2:]), demo=cfg.enable_demo)
         Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
                              out[1].reshape(S, N), Y0s,
@@ -171,6 +185,29 @@ def seed_major(states, N: int) -> SimpleNamespace:
     return SimpleNamespace(pipeline_state=SimpleNamespace(
         q=rows([s.pipeline_state.q for s in states]),
         qd=rows([s.pipeline_state.qd for s in states])))
+
+
+def batch_states(env, states, N: int):
+    """The initial states of S·N samples, sample s·N + n from seed s's
+    reset state: ``seed_major``'s for a physics env; for an analytic env
+    one state whose pipeline state is [S·N, 3]."""
+    if isinstance(env, PhysicsEnv):
+        return seed_major(states, N)
+    x = torch.stack([s.pipeline_state for s in states])
+    return states[0].replace(pipeline_state=x.repeat_interleave(N, dim=0))
+
+
+def rollout_batch(env, state0, Y0s: torch.Tensor, demo: bool = False):
+    """Y0s [N, H, nu] from ``batch_states``'s initial states → (rews [N, H],
+    bad [N][, logpd [N]]). A physics env: the CUDA kernel (the torch
+    engine on the CPU). An analytic env: its step on the whole batch
+    (JAX's vmap engine, mbd_tpu/planners/mbd.py:388-395), no flag, and the
+    demo log-density from ``env.eval_xref_logpd`` over the states."""
+    if isinstance(env, PhysicsEnv):
+        return rollout_rewards_cuda(env, state0, Y0s, demo=demo)
+    rews, xs = rollout_us(env, state0, Y0s)
+    out = (rews, torch.zeros_like(rews[:, 0]))
+    return out + (env.eval_xref_logpd(xs),) if demo else out
 
 
 # One seed's statistics, each the counterpart of JAX plan_batch's over
@@ -228,7 +265,8 @@ def barycenter(weights: torch.Tensor, Y0s: torch.Tensor) -> torch.Tensor:
 
 def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
          chunk_size: int = 0, progress_fn=None,
-         eps: Optional[torch.Tensor] = None) -> MBDResult:
+         eps: Optional[torch.Tensor] = None,
+         checkpoint_path: Optional[str] = None) -> MBDResult:
     """Run the full reverse diffusion of one seed on ``env.device``:
     ``plan_batch`` at S = 1, without the seed axis.
 
@@ -237,11 +275,23 @@ def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
     called after every ``chunk_size`` steps and after the last one.
     ``eps`` [Ndiffuse−1, Nsample, Hsample, nu] replaces the drawn noise,
     step by step in the order the steps run.
+
+    ``checkpoint_path`` (needs ``chunk_size > 0``) keeps the denoise's
+    state after every chunk and, when the checkpoint exists, resumes from
+    it: ``Checkpoint`` has the layout. A resumed plan equals the
+    uninterrupted one bit for bit on the same device when it is called as
+    the interrupted one was (the same generator seed or ``state_init``,
+    and ``eps``). A checkpoint of the JAX package cannot be resumed here:
+    it stores a threefry key, the port a Philox generator's state.
     """
-    res = plan_batch(env, cfg, [generator],
-                     None if state_init is None else [state_init],
-                     chunk_size, progress_fn,
-                     None if eps is None else eps[:, None])
+    if checkpoint_path is not None and chunk_size <= 0:
+        raise ValueError("checkpoint_path needs chunk_size > 0: the "
+                         "checkpoint is written after every chunk")
+    res = _denoise(env, cfg, [generator],
+                   None if state_init is None else [state_init],
+                   chunk_size, progress_fn,
+                   None if eps is None else eps[:, None],
+                   checkpoint_path)
     return MBDResult(Ybars=res.Ybars[0], rews_trace=res.rews_trace[0],
                      final_reward=res.final_reward[0],
                      final_diverged=bool(res.final_diverged[0]))
@@ -270,6 +320,71 @@ def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
     ``progress_fn(step, mean reward over the seeds)`` as in ``plan``.
     Returns an MBDResult with a leading seed axis.
     """
+    return _denoise(env, cfg, generators, states_init, chunk_size,
+                    progress_fn, eps)
+
+
+class Checkpoint:
+    """A denoise's checkpoint in the JAX package's layout
+    (mbd_tpu/planners/mbd.py:705-750), from ``path`` (``.npz`` added if
+    missing) and its base ``<base>``:
+
+      * ``<base>.Ybars.npy`` and ``<base>.rews.npy``: preallocated ``.npy``
+        memmaps of the iterates [T + pad, H, nu] and the mean rewards
+        [T + pad] (pad: the tail up to a whole chunk, which stays 0),
+        written a chunk at a time;
+      * ``<base>.npz``: ``next_chunk`` (the first step not yet run),
+        ``Ybar`` [H, nu] and ``generator`` (the generator's state as
+        uint8), written after the memmaps are flushed, so that a crash
+        inside a chunk only runs that chunk again.
+    """
+
+    def __init__(self, path: str, T: int, chunk_size: int, H: int, nu: int):
+        self.path = path if path.endswith(".npz") else path + ".npz"
+        base = self.path[:-len(".npz")]
+        self.shape = (T + (-T) % chunk_size, H, nu)
+        self.y_path, self.r_path = base + ".Ybars.npy", base + ".rews.npy"
+        self.Y_mm = self.r_mm = None
+
+    def resume(self, generator: torch.Generator, device):
+        """Opens the memmaps; when the checkpoint exists, restores the
+        generator and returns (the first step to run, Ȳ [1, H, nu], the
+        iterates [start, H, nu] and rewards [start] so far), else
+        (0, None, None, None)."""
+        if not os.path.exists(self.path):
+            self.Y_mm = np.lib.format.open_memmap(
+                self.y_path, mode="w+", dtype=np.float32, shape=self.shape)
+            self.r_mm = np.lib.format.open_memmap(
+                self.r_path, mode="w+", dtype=np.float32,
+                shape=self.shape[:1])
+            return 0, None, None, None
+        with np.load(self.path) as meta:
+            start = int(meta["next_chunk"])
+            Ybar = torch.from_numpy(meta["Ybar"]).to(device)[None]
+            generator.set_state(torch.from_numpy(meta["generator"]))
+        self.Y_mm = np.lib.format.open_memmap(self.y_path, mode="r+")
+        self.r_mm = np.lib.format.open_memmap(self.r_path, mode="r+")
+        return (start, Ybar, torch.from_numpy(np.array(self.Y_mm[:start])),
+                torch.from_numpy(np.array(self.r_mm[:start])))
+
+    def save(self, c: int, Ybars, rews, Ybar, generator, chunk_size: int):
+        """Chunk c's iterates [k, H, nu] and rewards [k] into the memmaps
+        at rows c…c + k, then the meta file with next_chunk = c +
+        chunk_size."""
+        self.Y_mm[c:c + len(Ybars)] = Ybars.cpu().numpy()
+        self.r_mm[c:c + len(rews)] = rews.cpu().numpy()
+        self.Y_mm.flush()
+        self.r_mm.flush()
+        np.savez(self.path, next_chunk=c + chunk_size,
+                 Ybar=Ybar.cpu().numpy(),
+                 generator=generator.get_state().numpy())
+
+
+def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
+             progress_fn, eps, checkpoint_path: Optional[str] = None
+             ) -> MBDResult:
+    """``plan_batch``; with ``checkpoint_path`` (one seed only, from
+    ``plan``), the chunks are checkpointed and resumed (``Checkpoint``)."""
     device = env.device
     S = len(generators)
     if states_init is None:
@@ -287,15 +402,32 @@ def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
 
     Ybar = torch.zeros((S, cfg.Hsample, nu), device=device)
     Ybars, rews_trace = [], []
+    start = 0
+    ckpt = None
+    if checkpoint_path is not None:
+        ckpt = Checkpoint(checkpoint_path, T, chunk_size, cfg.Hsample, nu)
+        start, Ybar_saved, Ybars_saved, rews_saved = ckpt.resume(
+            generators[0], device)
+        if start:
+            Ybar = Ybar_saved
+            Ybars = list(Ybars_saved[:T, None].to(device))
+            rews_trace = list(rews_saved[:T, None].to(device))
     for t, i in enumerate(range(cfg.Ndiffuse - 1, 0, -1)):
+        if t < start:
+            continue
         e = eps[t] if eps is not None else draw_eps(generators, shape,
                                                     device)
         Ybar, rew = reverse_once(Ybar, i, e)
         Ybars.append(Ybar)
         rews_trace.append(rew)
-        if progress_fn is not None and chunk_size > 0 and (
-                (t + 1) % chunk_size == 0 or t + 1 == T):
-            progress_fn(t + 1, float(rew.mean()))
+        if chunk_size > 0 and ((t + 1) % chunk_size == 0 or t + 1 == T):
+            if ckpt is not None:
+                c = t - t % chunk_size             # the chunk's first
+                ckpt.save(c, torch.stack(Ybars[c:])[:, 0],
+                          torch.stack(rews_trace[c:])[:, 0], Ybar[0],
+                          generators[0], chunk_size)
+            if progress_fn is not None:
+                progress_fn(t + 1, float(rew.mean()))
     Ybars = torch.stack(Ybars, dim=1)                    # [S, T, H, nu]
     final_reward, final_diverged = evaluate_final(env, states_init, Ybars)
     return MBDResult(Ybars=Ybars, rews_trace=torch.stack(rews_trace, dim=1),
@@ -304,14 +436,20 @@ def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
 
 
 def evaluate_final(env, states_init, plans: torch.Tensor):
-    """The final selection of S plans at once (JAX's plan_batch,
-    mbd_tpu/planners/mbd.py:560-598): every iterate of ``plans``
-    [S, T, H, nu] in one rollout of S·T samples, each from its seed's
-    reset state. Per seed, the last iterate when its own rollout is clean,
-    else the best clean one (written into ``plans[:, -1]``); with none
-    clean, the last and True. Returns (final_reward [S], final_diverged
-    [S] bool)."""
+    """The final selection of S plans at once. For a physics env (JAX's
+    plan_batch, mbd_tpu/planners/mbd.py:560-598): every iterate of
+    ``plans`` [S, T, H, nu] in one rollout of S·T samples, each from its
+    seed's reset state. Per seed, the last iterate when its own rollout is
+    clean, else the best clean one (written into ``plans[:, -1]``); with
+    none clean, the last and True. For an analytic env (JAX's vmap branch,
+    :599-606 and :786-790): the last iterate's mean reward, flagged only
+    when it is not finite. Returns (final_reward [S], final_diverged [S]
+    bool)."""
     S, T = plans.shape[:2]
+    if not isinstance(env, PhysicsEnv):
+        final_reward = eval_us(env, batch_states(env, states_init, 1),
+                               plans[:, -1]).mean(dim=-1)
+        return final_reward, ~torch.isfinite(final_reward)
     rews, bad = rollout_rewards_cuda(env, seed_major(states_init, T),
                                      plans.reshape((S * T,)
                                                    + plans.shape[2:]))

@@ -7,7 +7,8 @@ step size σ (1 at first, adapted by CMA-ES only):
 
     Y0s  = clip(σ·ε + μ, −1, 1),  ε ~ N(0, 1) of shape [Nsample, H, nu]
     rews = mean per-step reward of each rollout (the CUDA kernel on the
-           card, the torch engine on the CPU), standardized → logp₀
+           card, the torch engine on the CPU; an analytic env's own step),
+           standardized → logp₀
     w    = softmax(logp₀ / temperature), then the update rule:
 
   * mppi   — μ = Σₙ wₙ·Y0sₙ
@@ -18,8 +19,10 @@ step size σ (1 at first, adapted by CMA-ES only):
 
 Flagged or non-finite rollouts are demoted to the worst valid reward for
 the statistics and get zero weight (uniform weights when none is valid),
-as in ``planners/mbd.py``; the final plan is evaluated with the same
-best-clean-iterate fallback. σ stays a tensor on the device and the loop
+as in ``planners/mbd.py``; the final plan is evaluated as there: with the
+best-clean-iterate fallback on a physics env, the last iterate on an
+analytic one (car2d), whose rollouts step the whole batch at once
+(``mbd.rollout_batch``). σ stays a tensor on the device and the loop
 never waits on the device until the final evaluation. ``eps`` replaces the
 drawn noise (the tests feed JAX's stream through it).
 """
@@ -31,10 +34,9 @@ from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-from ..ops.rollout_cuda import rollout_rewards_cuda
 from .mbd import (HSAMPLE_RECOMMEND, NSAMPLE_RECOMMEND, TEMP_RECOMMEND,
-                  draw_eps, evaluate_final, masked_softmax, per_seed,
-                  seed_major, standardized_rewards)
+                  batch_states, draw_eps, evaluate_final, masked_softmax,
+                  per_seed, rollout_batch, standardized_rewards)
 
 NREFINE_RECOMMEND = {"pushT": 200, "humanoidrun": 300}
 
@@ -124,7 +126,7 @@ def make_refine_step_batch(env, cfg: PathIntegralConfig,
     # the weighted sums are float32 contractions: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state0 = seed_major(states_init, cfg.Nsample)
+    state0 = batch_states(env, states_init, cfg.Nsample)
 
     def update(rewss, bad, Y0s, mu, sigma):
         """One seed's update from its rewards [N, H], flags [N] and
@@ -140,7 +142,7 @@ def make_refine_step_batch(env, cfg: PathIntegralConfig,
         Y0s = torch.clamp(eps * sigma[:, None, None, None] + mu[:, None],
                           -1.0, 1.0)
         S, N = Y0s.shape[:2]
-        rewss, bad = rollout_rewards_cuda(
+        rewss, bad = rollout_batch(
             env, state0, Y0s.reshape((S * N,) + Y0s.shape[2:]))
         return per_seed(update, rewss.reshape(S, N, -1), bad.reshape(S, N),
                         Y0s, mu, sigma)

@@ -14,7 +14,8 @@ Each 8-seed mean is held against the JAX package's (``docs/RESULTS.json``,
 
 the seeds of the two being unpaired (other random streams). For the demo
 rows the final plans' demo log-densities (the kernel's demo mode) are
-held against JAX's the same way. JAX's pushT baselines failed (their rows
+held against JAX's the same way (car2d's from its analytic rollout,
+the others' from the kernel's demo mode). JAX's pushT baselines failed (their rows
 in ``docs/RESULTS_BASELINES.json`` hold ``"failed": true``), so those rows
 report the port's numbers with no bound. The kernels are built before any
 clock starts. It prints one line per row and writes them all to
@@ -46,10 +47,13 @@ ROWS = [("hopper", "hopper", [], "hopper"),
          "humanoidtrack+demo"),
         ("humanoidtrack_walk+demo", "humanoidtrack_walk", ["--enable_demo"],
          "humanoidtrack_walk+demo"),
-        ("humanoidrun", "humanoidrun", [], "humanoidrun")]
+        ("humanoidrun", "humanoidrun", [], "humanoidrun"),
+        ("car2d+demo", "car2d", ["--enable_demo"], "car2d+demo"),
+        ("car2d", "car2d", [], "car2d")]
 ROWS += [(f"{env} {m}", env, ["--algo", "path_integral",
                               "--update_method", m], f"{env}/{m}")
-         for env in ("hopper", "pushT") for m in ("mppi", "cem", "cma-es")]
+         for env in ("hopper", "pushT", "car2d")
+         for m in ("mppi", "cem", "cma-es")]
 
 
 def reference(key):
@@ -89,6 +93,7 @@ def main() -> int:
     from mbd_tpu_torch import envs
     from mbd_tpu_torch.cli import run_mbd
     from mbd_tpu_torch.ops import rollout_cuda as rc
+    from mbd_tpu_torch.rollout.rollout import rollout_us
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -97,8 +102,9 @@ def main() -> int:
     print(card, flush=True)
     rows = [r for r in ROWS
             if not args.only or r[0] in args.only.split(",")]
-    names = sorted({env for _, env, _, _ in rows})
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    # the kernel of every physics env (car2d, analytic, has none)
+    names = sorted({env for _, env, _, _ in rows if env != "car2d"})
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         list(pool.map(lambda n: rc.build(envs.get_env(n)), names))
 
     out, failed = [], []
@@ -125,9 +131,13 @@ def main() -> int:
             logpd = []
             for s, plan in enumerate(res["plans"]):
                 state = env.reset(torch.Generator("cuda").manual_seed(s))
+                plan = torch.tensor(plan, device="cuda")
+                if env_name == "car2d":
+                    xs = rollout_us(env, state, plan)[1]
+                    logpd.append(float(env.eval_xref_logpd(xs)))
+                    continue
                 logpd.append(float(rc.rollout_rewards_cuda(
-                    env, state, torch.tensor(plan, device="cuda")[None],
-                    demo=True)[2][0]))
+                    env, state, plan[None], demo=True)[2][0]))
             rec["logpd"] = bound(ref["xref_logpd_mean"],
                                  ref["xref_logpd_std"], logpd)
             rec["logpd"]["values"] = logpd

@@ -30,6 +30,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     listed, loaded = out.splitlines()[-2:]
     for module in ("mbd_tpu_torch.cli.run_mbd", "mbd_tpu_torch.viz.html",
                    "mbd_tpu_torch.rollout.replay",
-                   "mbd_tpu_torch.planners.mbd"):
+                   "mbd_tpu_torch.planners.mbd", "mbd_tpu_torch.envs.car2d",
+                   "mbd_tpu_torch.cli.vis_diffusion",
+                   "mbd_tpu_torch.blackbox.bbo"):
         assert module in listed.split()
     assert loaded.split() == ["LOADED"], loaded

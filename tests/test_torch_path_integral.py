@@ -26,6 +26,7 @@ from mbd_tpu import envs as jax_envs
 from mbd_tpu.planners import path_integral as jax_pi
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.envs import State
+from mbd_tpu_torch.ops.rollout_cuda import rollout_rewards_cuda
 from mbd_tpu_torch.planners import mbd
 from mbd_tpu_torch.planners import path_integral as pi
 
@@ -147,7 +148,7 @@ def test_plan_falls_back_to_best_clean_iterate(method, monkeypatch):
     res = pi.plan(env, cfg, torch.Generator().manual_seed(2))
     assert torch.equal(res.rews_trace, clean.rews_trace)
     state = env.reset(torch.Generator().manual_seed(2))
-    rews, _ = pi.rollout_rewards_cuda(env, state, clean.mu_0ts)
+    rews, _ = rollout_rewards_cuda(env, state, clean.mu_0ts)
     best = int(torch.argmax(rews[:-1].mean(dim=-1)))
     assert torch.equal(res.mu_0ts[-1], clean.mu_0ts[best])
     assert torch.equal(res.mu_0ts[:-1], clean.mu_0ts[:-1])

@@ -59,8 +59,12 @@ def test_snapshot_matches_jax(name):
 
 
 def test_get_env_refuses_unported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        envs.get_env("car2d")
+    """Every env of the reference is ported, car2d last: a name the
+    registry does not know raises ValueError, as in
+    mbd_tpu/envs/__init__.py:42."""
+    with pytest.raises(ValueError, match="Unknown environment"):
+        envs.get_env("no_such_env", device="cpu")
+    assert envs.get_env("car2d", device="cpu").action_size == 2
 
 
 def test_get_env_defaults_to_the_card():
