@@ -95,10 +95,26 @@ Phases, each of which raises on failure (exit code 1):
 7. ``blackbox.bbo.optimize`` on Ackley, Rastrigin and Levy at dim 800,
    6 seeds each, each mean within the two-sample bound of
    ``docs/RESULTS_BLACKBOX.json``'s;
-8. one JSON line with the analytic path's numbers and each phase's wall,
-   one with the kernels' numbers (with each baseline's launches, final
-   reward and wall, each batched path's, and the viewer's and the
-   resume's launches), then the device line.
+8. RL (``mbd_tpu_torch/rl``), every env step through the kernel's
+   state-out mode (``env_step_cuda``): first that mode against the plain
+   engine, bit for bit in q', qd', rewards and flags, on hopper, pushT
+   and humanoidrun at B = 1, 8, 128 and 2048 from per-sample states with
+   flagged samples, timed at pushT 2048 and hopper 128; then ``python -m
+   mbd_tpu_torch.rl.train --env_name pushT`` (PPO at its reference
+   config, 2048 envs, unroll 20, 16 minibatches × 8 epochs, for 2
+   iterations and one eval: 20 + 20 + 100 + 40 launches) and
+   ``--env_name hopper --scale 0`` (SAC: 64 prefill steps, 64 iterations
+   of 64 updates, the eval of 128 envs × 1000 steps, 50 for the 8-seed
+   eval: 1178 launches), each with no other launch and no call of the
+   plain engine, finite losses, evals and params; then JAX's trained
+   hopper SAC policy (``mbd_tpu_torch/assets/hopper_sac.npz``) by
+   train.py's 8-seed eval from JAX's resets, its mean within the
+   two-sample bound of ``docs/RESULTS_RL.json``'s;
+9. one JSON line with the analytic path's numbers and each phase's wall,
+   one with RL's, one with the kernels' numbers (with each baseline's
+   launches, final reward and wall, each batched path's, the viewer's and
+   the resume's launches, and the state-out mode's), then the device
+   line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -969,6 +985,222 @@ def drive_bbo(torch, sq, gpu):
     return out
 
 
+# RL: the kernel's state-out mode (env_step_cuda) at these B, on
+# these models, against its plain version; the B it is timed at per model
+RL_STEP_ENVS = ("hopper", "pushT", "humanoidrun")
+RL_STEP_B = (1, 8, 128, 2048)
+RL_TIMED = {"pushT": 2048, "hopper": 128}
+# PPO on pushT at its reference config for 2 iterations (2048 envs × 20
+# steps each), one eval; SAC on hopper at --scale 0
+PPO_SCALE = 0.00082
+
+
+def rl_states(torch, env, gen, B):
+    """Per-sample states around the env's reset (0.01 noise on q, 0.5 on
+    qd), every fourth sample's first dof at speed 150, so that the step's
+    checks flag it."""
+    ps = env.reset(gen).pipeline_state
+    q = ps.q[:, None] + 0.01 * torch.randn((env.sys.nq, B), generator=gen,
+                                           device="cuda")
+    qd = ps.qd[:, None] + 0.5 * torch.randn((env.sys.nv, B), generator=gen,
+                                            device="cuda")
+    qd[0, ::4] = 150.0
+    return q.contiguous(), qd.contiguous()
+
+
+def drive_rl_step(torch, envs, rc, fused, ops, gpu):
+    """The state-out mode against the plain engine on the card, bit for
+    bit (q', qd', rewards, flags), on hopper, pushT and humanoidrun at
+    B = 1, 8, 128 and 2048 from per-sample states with flagged samples;
+    timed at RL_TIMED's B, with its bound."""
+    out = {}
+    for name in RL_STEP_ENVS:
+        env = envs.get_env(name, device="cuda")
+        sys_ = env.sys
+        for B in RL_STEP_B:
+            gen = torch.Generator("cuda").manual_seed(B)
+            q, qd = rl_states(torch, env, gen, B)
+            u = 2.0 * torch.rand((env.action_size, B), generator=gen,
+                                 device="cuda") - 1.0
+            plain_ms, plain = time_ms(
+                torch, lambda: fused.env_step_outputs(env, q, qd, u), 1)
+            got = rc.env_step_cuda(env, q, qd, u)
+            torch.cuda.synchronize()
+            diff = [k for k, a, b in zip(("q", "qd", "reward", "bad"), got,
+                                         plain)
+                    if a.shape != b.shape or not torch.equal(a, b)]
+            err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+            flagged = int(got[3].sum())
+            same = f"differ in {diff}" if diff else "equal bit for bit"
+            print(f"rl_step {name} B={B}: kernel and plain version {same}, "
+                  f"{flagged} flagged", flush=True)
+            if diff or not bool(torch.isfinite(got[0]).all()):
+                raise AssertionError(f"state-out mode {name} B={B}: {diff}")
+            if B >= 8 and not flagged:
+                raise AssertionError(f"rl_step {name} B={B}: no sample "
+                                     "flagged")
+            if RL_TIMED.get(name) != B:
+                continue
+            ms, _ = time_ms(torch, lambda: rc.env_step_cuda(env, q, qd, u),
+                            50)
+            floats = B * (2 * (sys_.nq + sys_.nv) + sys_.nu + 2)
+            t_ops = ops[name, False] * B / PEAK_FLOPS * 1e3
+            t_bytes = 4 * floats / PEAK_BYTES * 1e3
+            out[name] = dict(
+                B=B, ms=ms, max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                operations=ops[name, False] * B, bytes=4 * floats)
+            print(f"  state-out {name} B={B}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.1f} ms, bound {out[name]['bound_ms']:.6f} ms "
+                  f"({out[name]['bound_by']}) on {gpu}", flush=True)
+    return out
+
+
+def drive_train(torch, rc, fused, env_name, argv, expect, gpu):
+    """``python -m mbd_tpu_torch.rl.train --env_name env_name *argv`` in
+    this process, into a temporary directory, with the launch counts set
+    to 0 just before and read just after: every env step of training, of
+    the trainer's eval and of the 8-seed eval must be one state-out launch
+    (``expect(record)`` of them) and nothing else may launch or call the
+    plain engine; losses, eval returns and the saved params finite."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mbd_tpu_torch.rl import train
+
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_rl_{env_name}_")
+    try:
+        rc.LAUNCHES = rc.STATE_LAUNCHES = rc.QS_LAUNCHES = 0
+        rc.DEMO_LAUNCHES = fused.CUDA_CALLS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = train.main(["--env_name", env_name, "--results_dir",
+                             out_dir, "--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, state = rc.LAUNCHES, rc.STATE_LAUNCHES
+        with np.load(os.path.join(out_dir, env_name,
+                                  "params_torch.npz")) as d:
+            params_finite = all(bool(np.isfinite(d[k]).all())
+                                for k in d.files)
+        page = os.path.getsize(os.path.join(out_dir, env_name,
+                                            "RL_torch.html"))
+    finally:
+        shutil.rmtree(out_dir)
+    want = expect(record)
+    hist = record["history"]
+    iters = sum(h["train/iterations"] for h in hist)
+    losses = {k: v for h in hist for k, v in h.items()
+              if k.startswith("train/") and k.endswith("loss")}
+    per_iter = sum(h["train/wall_s"] for h in hist) / iters
+    print(f"{env_name} {record['algo']}: {iters} iterations, "
+          f"{per_iter:.4f} s each; {state} state-out launches (expected "
+          f"{want}), {launches} launches in all, plain-engine calls "
+          f"{fused.CUDA_CALLS}; losses {losses}; trainer's eval "
+          f"{[h['eval/episode_reward'] for h in hist]}; 8-seed eval "
+          f"{record['eval_mean']:.4f} ± {record['eval_std']:.4f}; "
+          f"RL_torch.html {page} B; wall {wall:.1f} s on {gpu}", flush=True)
+    finite = all(math.isfinite(v) for v in losses.values()) and all(
+        math.isfinite(h["eval/episode_reward"]) for h in hist) and \
+        math.isfinite(record["eval_mean"])
+    if not (finite and params_finite):
+        raise AssertionError(f"{env_name}: a loss, an eval or a param is "
+                             "not finite")
+    if state != want or launches != state or fused.CUDA_CALLS:
+        raise AssertionError(f"{env_name}: an env step not taken through "
+                             "the kernel's state-out mode")
+    return dict(launches=state, iterations=iters, wall_per_iter_s=per_iter,
+                wall_s=wall, losses=losses, eval_mean=record["eval_mean"],
+                eval_std=record["eval_std"],
+                trainer_eval=[h["eval/episode_reward"] for h in hist],
+                history=hist)
+
+
+def drive_ppo(torch, rc, fused, gpu):
+    """PPO on pushT at its reference config (2048 envs, unroll 20, 16
+    minibatches, 8 epochs, policy (32)×4, value (256)×5) for 2 iterations
+    and one eval: 20 launches an iteration, 100 for the eval (128 envs ×
+    the episode's 100 steps), 40 for the 8-seed eval."""
+    from mbd_tpu_torch.rl import train
+
+    cfg = train.PPO_CONFIGS["pushT"]
+
+    def expect(record):
+        iters = sum(h["train/iterations"] for h in record["history"])
+        return iters * cfg["unroll_length"] + len(record["history"]) * \
+            cfg["episode_length"] + train.eval_steps("pushT")
+
+    out = drive_train(torch, rc, fused, "pushT",
+                      ["--scale", str(PPO_SCALE), "--num_evals", "1"],
+                      expect, gpu)
+    if out["iterations"] != 2:
+        raise AssertionError(f"PPO took {out['iterations']} iterations")
+    return out
+
+
+def drive_sac(torch, rc, fused, gpu):
+    """SAC on hopper at --scale 0: 64 prefill steps, then 64 iterations of
+    one env step (128 envs) and 64 gradient updates, the eval of 128 envs
+    × 1000 steps, and the 8-seed eval's 50 steps: one launch each."""
+    from mbd_tpu_torch.rl import train
+
+    cfg = train.SAC_CONFIGS["hopper"]
+
+    def expect(record):
+        h = record["history"]
+        return h[0]["train/prefill_steps"] + sum(
+            x["train/iterations"] for x in h) + len(h) * \
+            cfg["episode_length"] + train.eval_steps("hopper")
+
+    return drive_train(torch, rc, fused, "hopper", ["--scale", "0"],
+                       expect, gpu)
+
+
+def drive_rl_eval(torch, gpu):
+    """JAX's trained hopper SAC policy (``mbd_tpu_torch/assets/
+    hopper_sac.npz``) in the port, by train.py's eval protocol (8 seeds ×
+    50 steps, deterministic actions) from JAX's own eval resets: the
+    8-seed mean within 3·√((σ_JAX² + σ²)/8) of JAX's
+    (``docs/RESULTS_RL.json``); each seed printed beside JAX's CPU run."""
+    import numpy as np
+
+    from mbd_tpu_torch import envs
+    from mbd_tpu_torch.rl import networks, sac, train
+    from seed_quality import bound
+
+    env = envs.get_env("hopper", device="cuda")
+    tree = networks.load_npz(train.HOPPER_SAC)
+    cfg = sac.SACConfig(**train.SAC_CONFIGS["hopper"])
+    params = sac.init_params(env, 0)
+    networks.load_tree(params, tree)
+    q0 = torch.tensor(tree["eval"]["q"].T.copy(), device="cuda")
+    qd0 = torch.tensor(tree["eval"]["qd"].T.copy(), device="cuda")
+    t0 = time.perf_counter()
+    rews, _ = train.evaluate_seeds(
+        env, networks.make_inference_fn(cfg, params), q0, qd0,
+        train.eval_steps("hopper"))
+    rews = rews.cpu().numpy().astype(float)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "docs", "RESULTS_RL.json")) as f:
+        ref = json.load(f)["hopper"]
+    b = bound(ref["eval_mean"], ref["eval_std"], rews.tolist())
+    for s, (r, j) in enumerate(zip(rews, tree["eval"]["rewards"])):
+        print(f"  hopper SAC seed {s}: port {r:.6f}, JAX (CPU) {j:.6f}",
+              flush=True)
+    print(f"rl_eval hopper SAC (JAX's policy): 8-seed mean {b['mean']:.4f} "
+          f"± {b['std']:.4f} against JAX's {b['ref_mean']:.4f} ± "
+          f"{b['ref_std']:.4f}: |Δ| {abs(b['mean'] - b['ref_mean']):.4f}, "
+          f"bound {b['bound']:.4f}; {wall:.2f} s on {gpu}", flush=True)
+    if not b["ok"]:
+        raise AssertionError("the carried hopper SAC policy is outside the "
+                             "bound")
+    return dict(mean=b["mean"], std=b["std"], bound=b["bound"],
+                per_seed=rews.tolist(), wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -1204,6 +1436,10 @@ def main() -> int:
     analytic = dict(car2d=phase("car2d", drive_car2d, envs, rc, fused, mbd,
                                 pi, sq, gpu),
                     bbo=phase("bbo", drive_bbo, sq, gpu))
+    rl_step = phase("rl_step", drive_rl_step, envs, rc, fused, ops, gpu)
+    rl = dict(ppo=phase("ppo", drive_ppo, rc, fused, gpu),
+              sac=phase("sac", drive_sac, rc, fused, gpu),
+              eval=phase("rl_eval", drive_rl_eval, gpu))
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
 
@@ -1218,6 +1454,12 @@ def main() -> int:
     # the analytic path (car2d, bbo) launches no kernel: its numbers and
     # every phase's wall on a line of their own
     print(json.dumps(dict(analytic, phase_walls_s=walls)))
+    # RL: each trainer's iterations, walls, losses and evals, and the
+    # carried JAX policy's eval
+    print(json.dumps({"rl": {
+        "ppo": {k: v for k, v in rl["ppo"].items() if k != "history"},
+        "sac": {k: v for k, v in rl["sac"].items() if k != "history"},
+        "eval": rl["eval"]}}))
     order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",
@@ -1252,7 +1494,21 @@ def main() -> int:
         "bound_by": stats[name]["bound_by"],
         # no single PyTorch call computes a rollout
         "library_ms": None}
-        for name in ENVS]}))
+        for name in ENVS] + [{
+        # the state-out mode, one env step of RL training: a mode of the
+        # same kernel, with no Pallas counterpart (JAX takes the step with
+        # XLA, mbd_tpu/rl/batched_env.py:83)
+        "name": f"env_step[{name}]", "route": "cuda",
+        "source": "mbd_tpu_torch/csrc/rollout.cu",
+        "replaces": "mbd_tpu/ops/rollout_pallas.py:151",
+        "modes": ["state_out"], "shape": f"{st['B']}x1",
+        "launches": rl[algo]["launches"],
+        "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": None}
+        for name, algo, st in (("pushT", "ppo", rl_step["pushT"]),
+                               ("hopper", "sac", rl_step["hopper"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,12 @@
 // (q0[nq]) or per-sample (q0[nq, N]) initial state; with need_qs the
 // post-step position trace qs[H, nq, N]; with demo the demo-tracking
 // log-density logpd[N] against the env's demo frames xref, read at run
-// time so that every clip of a model shares one build.
+// time so that every clip of a model shares one build. A fifth mode of
+// the port's own, with no Pallas counterpart, writes the velocities after
+// the last step, qd_out[nv, N]: at H = 1 with the trace, one env step
+// from a per-sample state, (q', qd'), which RL training steps through
+// (mbd_tpu_torch/rl/batched_env.py; JAX takes that step with XLA outside
+// Pallas, mbd_tpu/rl/batched_env.py:83-86).
 //
 // What bounds it on this card: latency, not bytes. A substep of one sample
 // is a few thousand dependent float operations (tens of thousands on the
@@ -1019,9 +1024,11 @@ __device__ void track_cost(Work& s, const float* xref_t, float& acc) {
 #endif
 
 // Sample n's whole rollout, by the group g in the slice s. qs [H, NQ, N]
-// (the post-step position trace) and logpd [N] (the demo log-density,
-// against xref [H_demo, NTRACK, 3]) are written only when their pointers
-// are not null.
+// (the post-step position trace), logpd [N] (the demo log-density,
+// against xref [H_demo, NTRACK, 3]) and qd_out [NV, N] (the velocities
+// after the last step, clamped as every substep clamps them: with qs at
+// H = 1, the state-out mode, one env step of RL training) are written
+// only when their pointers are not null.
 template <int G>
 __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                bool live,
@@ -1032,7 +1039,8 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                float* __restrict__ bad_out,
                                float* __restrict__ qs,
                                const float* __restrict__ xref,
-                               float* __restrict__ logpd, int N, int H) {
+                               float* __restrict__ logpd,
+                               float* __restrict__ qd_out, int N, int H) {
   float bad = 0.0f, acc = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
   if (g.lane == 0) {
 #pragma unroll
@@ -1124,6 +1132,10 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
   }
   if (g.lane != 0 || !live) return;
   bad_out[n] = bad;
+  if (qd_out != nullptr) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) qd_out[i * N + n] = s.qd[i];
+  }
 #if NTRACK > 0
   if (logpd != nullptr) logpd[n] = -acc / static_cast<float>(NTRACK * H);
 #endif
@@ -1145,7 +1157,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    int per_sample, const float* __restrict__ U,
                    float* __restrict__ rews, float* __restrict__ bad_out,
                    float* __restrict__ qs, const float* __restrict__ xref,
-                   float* __restrict__ logpd, int N, int H) {
+                   float* __restrict__ logpd, float* __restrict__ qd_out,
+                   int N, int H) {
   extern __shared__ float smem[];
   // the model's run-time tables into shared memory
   for (int i = threadIdx.x; i < static_cast<int>(sizeof(Tables) / 4);
@@ -1160,7 +1173,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Group<kG> g{lane, static_cast<int>(threadIdx.x % 32) - lane};
   rollout_sample<kG>(g, reinterpret_cast<Slice*>(smem)[grp],
                      n < N ? n : N - 1, n < N, q0, qd0, per_sample, U, rews,
-                     bad_out, qs, xref, logpd, N, H);
+                     bad_out, qs, xref, logpd, qd_out, N, H);
 }
 
 // Once per device: the opt-in to dynamic shared memory above 48 KB, and
@@ -1203,17 +1216,18 @@ cudaError_t prepare() {
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). qs, xref
-// and logpd may be null (see rollout_sample).
+// Launch on `stream`; returns cudaGetLastError() (0 on success). qs, xref,
+// logpd and qd_out may be null (see rollout_sample).
 int mbd_rollout(const float* q0, const float* qd0, int per_sample,
                 const float* U, float* rews, float* bad, float* qs,
-                const float* xref, float* logpd, int N, int H, void* stream) {
+                const float* xref, float* logpd, float* qd_out, int N, int H,
+                void* stream) {
   cudaError_t e = prepare();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + kThreads / kG - 1) / (kThreads / kG)), block(kThreads);
   rollout_kernel<<<grid, block, kSharedBytes,
                    static_cast<cudaStream_t>(stream)>>>(
-      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, N, H);
+      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 

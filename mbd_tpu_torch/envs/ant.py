@@ -27,13 +27,16 @@ class Ant(PhysicsEnv):
         return ("healthy", {"dt": self.dt, "ctrl_cost": self.ctrl_cost,
                             "z_low": self.z_low, "z_high": self.z_high})
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         q = self.sys.init_q + self._uniform(generator, self.sys.nq, -0.1, 0.1)
         quat = self.sys.init_q[3:7]
         q[3:7] = quat / torch.linalg.norm(quat)
         qd = 0.1 * torch.randn(self.sys.nv, generator=generator,
                                device=self.device)
-        return self._state(self.pipeline_init(q, qd))
+        return q, qd
+
+    def reset(self, generator: torch.Generator) -> State:
+        return self._state(self.pipeline_init(*self.reset_q(generator)))
 
     def _healthy(self, z: torch.Tensor) -> torch.Tensor:
         return ((z >= self.z_low) & (z <= self.z_high)).to(z.dtype)

@@ -22,12 +22,15 @@ class Cartpole(PhysicsEnv):
                                           device=sys.device))
         super().__init__(sys, n_frames=4)
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         q = self.sys.init_q + self._uniform(generator, self.sys.nq,
                                             -0.01, 0.01)
         q = q + torch.tensor([0.0, math.pi], device=self.device)
         qd = self._uniform(generator, self.sys.nv, -0.01, 0.01)
-        return self._state(self.pipeline_init(q, qd))
+        return q, qd
+
+    def reset(self, generator: torch.Generator) -> State:
+        return self._state(self.pipeline_init(*self.reset_q(generator)))
 
     def step(self, state: State, action: torch.Tensor) -> State:
         ps = self.pipeline_step(state.pipeline_state, action)

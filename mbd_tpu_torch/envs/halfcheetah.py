@@ -22,11 +22,14 @@ class Halfcheetah(PhysicsEnv):
         # (q0 − q0_prev)·(1/dt) − ctrl_cost·Σu²
         return ("velocity", {"inv_dt": recip32(self.dt), "ctrl_cost": 0.1})
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         q = self.sys.init_q + self._uniform(generator, self.sys.nq, -0.1, 0.1)
         qd = 0.1 * torch.randn(self.sys.nv, generator=generator,
                                device=self.device)
-        return self._state(self.pipeline_init(q, qd))
+        return q, qd
+
+    def reset(self, generator: torch.Generator) -> State:
+        return self._state(self.pipeline_init(*self.reset_q(generator)))
 
     def step(self, state: State, action: torch.Tensor) -> State:
         ps0 = state.pipeline_state

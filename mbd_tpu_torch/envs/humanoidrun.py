@@ -28,11 +28,14 @@ class HumanoidRun(PhysicsEnv):
         # q0 − clip(|q2 − z_target|, −1, 1) − 0.1·|q1|
         return ("run", {"z_target": self.z_target})
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         lo, hi = -self.reset_noise, self.reset_noise
         q = self.sys.init_q + self._uniform(generator, self.sys.nq, lo, hi)
         qd = self._uniform(generator, self.sys.nv, lo, hi)
-        return self._state(self.pipeline_init(q, qd))
+        return q, qd
+
+    def reset(self, generator: torch.Generator) -> State:
+        return self._state(self.pipeline_init(*self.reset_q(generator)))
 
     def step(self, state: State, action: torch.Tensor) -> State:
         ps = self.pipeline_step(state.pipeline_state, action)

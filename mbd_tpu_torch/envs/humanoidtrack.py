@@ -78,11 +78,13 @@ class HumanoidTrack(PhysicsEnv):
         return ("track", {"z_target": self.z_target,
                           "v_target": self.v_target})
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         del generator  # deterministic
-        q = self.sys.init_q.clone()
-        qd = torch.zeros(self.sys.nv, device=self.device)
-        ps = self.pipeline_init(q, qd)
+        return (self.sys.init_q.clone(),
+                torch.zeros(self.sys.nv, device=self.device))
+
+    def reset(self, generator: torch.Generator) -> State:
+        ps = self.pipeline_init(*self.reset_q(generator))
         zero = torch.zeros((), device=self.device)
         return State(ps, self._obs(ps), zero, zero,
                      metrics={"reward_linup": zero, "reward_quadctrl": zero})

@@ -105,6 +105,12 @@ class PhysicsEnv(Env):
                               action.to(ps.q.dtype)[:, None], self.n_frames)
         return make_state(self.sys, q[:, 0], qd[:, 0])
 
+    def reset_q(self, generator: torch.Generator):
+        """The reset's (q [nq], qd [nv]), drawn from ``generator`` as
+        ``reset`` draws them, without the link poses ``reset`` computes
+        (RL's batched reset, rl/batched_env.py, needs q and qd only)."""
+        raise NotImplementedError
+
     def _uniform(self, generator, n, lo, hi) -> torch.Tensor:
         u = torch.rand(n, generator=generator, device=self.device)
         return u * (hi - lo) + lo
@@ -121,6 +127,12 @@ class PhysicsEnv(Env):
     def obs_qs_b(self, q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
         """Observation [obs, N] from batch-last q [nq, N] / qd [nv, N]."""
         return torch.cat([q, qd], dim=0)
+
+    def rl_done_qs_b(self, q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
+        """Per-step termination flags [N] from the post-step state (RL
+        training, rl/batched_env.py). Episodes never self-terminate here;
+        ant and pushT override it."""
+        return torch.zeros_like(q[0])
 
 
 def snapshot_path(model: str) -> str:

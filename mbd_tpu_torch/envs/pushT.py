@@ -36,7 +36,7 @@ class PushT(PhysicsEnv):
     def __init__(self, device=DEFAULT):
         super().__init__(load(self.model, device), n_frames=5)
 
-    def reset(self, generator: torch.Generator) -> State:
+    def reset_q(self, generator: torch.Generator):
         q = self.sys.init_q.clone()
         q[:2] = torch.tensor(self.pusher_start, device=self.device)
         u = torch.rand(3, generator=generator, device=self.device)
@@ -44,8 +44,10 @@ class PushT(PhysicsEnv):
             self.goal_spread, device=self.device) + torch.tensor(
             self.goal_centre, device=self.device)
         q[5:] = goal
-        qd = torch.zeros(self.sys.nv, device=self.device)
-        ps = self.pipeline_init(q, qd)
+        return q, torch.zeros(self.sys.nv, device=self.device)
+
+    def reset(self, generator: torch.Generator) -> State:
+        ps = self.pipeline_init(*self.reset_q(generator))
         return State(ps, self._obs(ps), self._reward(ps), self._done(ps))
 
     def step(self, state: State, action: torch.Tensor) -> State:

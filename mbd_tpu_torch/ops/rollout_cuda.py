@@ -14,9 +14,12 @@ the sources and the header, and bound with ``ctypes``.
 
 ``rollout_rewards_cuda`` keeps the signature and layout of
 ``rollout_rewards_pallas``: ``Y0s [N, H, nu]`` in, ``(rews [N, H],
-bad [N][, qs [H, nq, N]][, logpd [N]])`` out. A CPU tensor takes the plain
-version (``rollout/fused.py::rollout_outputs``, the torch engine); a CUDA
-tensor launches the kernel or raises.
+bad [N][, qs [H, nq, N]][, logpd [N]])`` out. ``env_step_cuda`` is the
+port's fifth mode, state out, with no Pallas counterpart: one env step
+from a per-sample (q, qd), (q', qd', reward, bad), for RL training
+(``rl/batched_env.py``). A CPU tensor takes the plain version
+(``rollout/fused.py::rollout_outputs`` and ``env_step_outputs``, the torch
+engine); a CUDA tensor launches the kernel or raises.
 
 Coverage: free, slide and hinge joints; plane–sphere, plane–capsule,
 capsule–capsule and sphere–box pairs: every model the port serves
@@ -34,12 +37,13 @@ import shutil
 import subprocess
 import tempfile
 import time
+from types import SimpleNamespace
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..rollout.fused import rollout_outputs
+from ..rollout.fused import env_step_outputs, rollout_outputs
 from ..sim import batched as BT
 from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
 from ..sim.system import (FREE, HINGE, PAIR_CAPSULE_CAPSULE,
@@ -54,10 +58,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # Launches of the CUDA kernel, counted where the kernel is launched; of
-# those, the launches with demo=True and those with need_qs=True.
+# those, the launches with demo=True, those with need_qs=True and those of
+# the state-out mode (env_step_cuda).
 LAUNCHES = 0
 DEMO_LAUNCHES = 0
 QS_LAUNCHES = 0
+STATE_LAUNCHES = 0
 # The kernel indexes its arrays with 32-bit ints: the largest, qs's
 # (t·nq + i)·N + n, must stay below 2³¹.
 MAX_INDEX = 2 ** 31 - 1
@@ -409,8 +415,8 @@ class Built:
         lib.mbd_rollout.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
         lib.mbd_rollout_attrs.argtypes = [ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)]
@@ -427,9 +433,11 @@ class Built:
         return dict(zip(LAYOUT, out))
 
     def run(self, env, state0, Y0s: torch.Tensor, need_qs: bool = False,
-            demo: bool = False) -> Tuple[torch.Tensor, ...]:
+            demo: bool = False, state_out: bool = False
+            ) -> Tuple[torch.Tensor, ...]:
         """One launch on CUDA tensors whose shapes ``rollout_rewards_cuda``
-        has checked; its outputs in that function's layout."""
+        has checked; its outputs in that function's layout, and with
+        ``state_out`` the velocities after the last step [nv, N] last."""
         N, H, _ = Y0s.shape
         q0 = state0.pipeline_state.q.contiguous()
         qd0 = state0.pipeline_state.qd.contiguous()
@@ -439,6 +447,7 @@ class Built:
         bad = torch.empty((N,), **f32)
         qs = torch.empty((H, env.sys.nq, N), **f32) if need_qs else None
         logpd = torch.empty((N,), **f32) if demo else None
+        qd_out = torch.empty((env.sys.nv, N), **f32) if state_out else None
         xref = env.xref_frames if demo else None       # [H_demo, 5, 3]
 
         def ptr(t):
@@ -449,7 +458,7 @@ class Built:
             err = self.lib.mbd_rollout(
                 q0.data_ptr(), qd0.data_ptr(), int(q0.dim() == 2),
                 U.data_ptr(), rews.data_ptr(), bad.data_ptr(), ptr(qs),
-                ptr(xref), ptr(logpd), N, H, stream)
+                ptr(xref), ptr(logpd), ptr(qd_out), N, H, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA rollout kernel launch failed: error {err}")
@@ -458,6 +467,8 @@ class Built:
             out += (qs,)
         if demo:
             out += (logpd,)
+        if state_out:
+            out += (qd_out,)
         return out
 
 
@@ -565,11 +576,49 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
     if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
-    # header generation and source hashing once per model, not per launch
-    built = sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}/"
-                       f"{env.kernel_group}", lambda: build(env))
-    out = built.run(env, state0, Y0s, need_qs, demo)
+    out = _built(env).run(env, state0, Y0s, need_qs, demo)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
     return out
+
+
+def _built(env) -> Built:
+    """``env``'s library, its header generated and its source hashed once
+    per model, not per launch."""
+    return env.sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}/"
+                          f"{env.kernel_group}", lambda: build(env))
+
+
+def env_step_cuda(env, q: torch.Tensor, qd: torch.Tensor, u: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """One env step (n_frames checked substeps) of B samples, each from
+    its own state: q [nq, B], qd [nv, B], u [nu, B] → (q' [nq, B],
+    qd' [nv, B], reward [B], bad [B]), as ``env_step_checked_b`` and the
+    env's ``reward_qs_b`` give them. The kernel's state-out mode: one
+    launch at H = 1 with the trace, whose one step is q', and the
+    velocities after it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global LAUNCHES, STATE_LAUNCHES
+    sys = env.sys
+    check_supported(sys)
+    if not u.is_cuda:
+        return env_step_outputs(env, q, qd, u)
+    B = u.shape[1]
+    if q.shape != (sys.nq, B) or qd.shape != (sys.nv, B) or \
+            u.shape != (sys.nu, B):
+        raise ValueError(f"q, qd, u must be [{sys.nq}, B], [{sys.nv}, B], "
+                         f"[{sys.nu}, B]; got {tuple(q.shape)}, "
+                         f"{tuple(qd.shape)}, {tuple(u.shape)}")
+    for t in (q, qd, u):
+        if t.device != u.device or t.dtype != torch.float32:
+            raise ValueError("q, qd and u must be float32 on one device")
+    state0 = SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=q.contiguous(), qd=qd.contiguous()))
+    rews, bad, qs, qd1 = _built(env).run(env, state0, u.t()[:, None, :],
+                                         need_qs=True, state_out=True)
+    LAUNCHES += 1
+    STATE_LAUNCHES += 1
+    return qs[0], qd1, rews[:, 0], bad

@@ -37,6 +37,16 @@ def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
     return torch.stack(qs), torch.stack(qds), bad
 
 
+def env_step_outputs(env, q: torch.Tensor, qd: torch.Tensor,
+                     u: torch.Tensor):
+    """The plain version of the CUDA kernel's state-out mode: one env step
+    of B samples from q [nq, B], qd [nv, B] under u [nu, B] →
+    (q' [nq, B], qd' [nv, B], reward [B], bad [B])."""
+    qs, qds, bad = rollout_qs(env.sys, env.n_frames, q, qd, u[None])
+    rew = env.reward_qs_b(qs, qds, u[None], q, qd)[0]
+    return qs[0], qds[0], rew, bad
+
+
 def states_from_qs(sys, qs: torch.Tensor,
                    qds: Optional[torch.Tensor] = None) -> PipelineState:
     """Stacked PipelineState [H, B, ...] from a batch-last trace qs

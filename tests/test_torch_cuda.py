@@ -231,3 +231,40 @@ def test_plan_batch_one_launch_per_step(card, planner):
                        else serial.mu_0ts)
     assert abs(float(res.final_reward[0])
                - float(serial.final_reward)) <= 1e-6
+
+
+def _flagged_states(env, gen, B):
+    """Per-sample states around the env's reset, 0.01 noise on q and 0.5 on
+    qd, with every fourth sample's qd at 95 in its first dof, so that the
+    step's checks flag some samples (|qd| > 100 or a root sunk below the
+    floor)."""
+    state = _state(env, gen, B, per_sample=True).pipeline_state
+    qd = state.qd + 0.5 * torch.randn(state.qd.shape, generator=gen,
+                                       device=state.qd.device)
+    qd[0, ::4] = 95.0
+    return state.q, qd.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hopper", "pushT", "humanoidrun"])
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_state_out_matches_plain_version(card, name, B):
+    """The state-out mode (``env_step_cuda``, one launch) against its plain
+    version (``rollout_qs`` at H = 1 and ``reward_qs_b``): q', qd',
+    rewards and flags bit for bit, from per-sample states that include
+    flagged samples, at the small B of SAC (128) and of the eval (8)."""
+    from mbd_tpu_torch.rollout.fused import env_step_outputs
+
+    env = envs.get_env(name, device=card)
+    gen = torch.Generator(card).manual_seed(B)
+    q, qd = _flagged_states(env, gen, B)
+    u = 2 * torch.rand((env.action_size, B), generator=gen,
+                       device=card) - 1
+    launches = rollout_cuda.STATE_LAUNCHES
+    out = rollout_cuda.env_step_cuda(env, q, qd, u)
+    torch.cuda.synchronize()
+    assert rollout_cuda.STATE_LAUNCHES == launches + 1
+    plain = env_step_outputs(env, q, qd, u)
+    for k, p in zip(out, plain):
+        assert k.shape == p.shape
+        assert torch.equal(k, p)

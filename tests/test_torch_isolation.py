@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``mbd_tpu_torch`` and
-``chip_smoke.py`` and ``seed_quality.py`` loads neither JAX nor anything of the reference package
-``mbd_tpu`` (the card's machine has no JAX)."""
+``chip_smoke.py`` and ``seed_quality.py`` loads neither JAX, flax nor
+optax, nor anything of the reference package ``mbd_tpu`` (the card's
+machine has no JAX)."""
 
 import os
 import subprocess
@@ -17,7 +18,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke, seed_quality
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m in ("jax", "flax", "optax")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax."))
              or m == "mbd_tpu" or m.startswith("mbd_tpu."))
 print(len(names), " ".join(names))
 print("LOADED", " ".join(bad))
@@ -32,6 +34,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "mbd_tpu_torch.rollout.replay",
                    "mbd_tpu_torch.planners.mbd", "mbd_tpu_torch.envs.car2d",
                    "mbd_tpu_torch.cli.vis_diffusion",
-                   "mbd_tpu_torch.blackbox.bbo"):
+                   "mbd_tpu_torch.blackbox.bbo", "mbd_tpu_torch.rl.networks",
+                   "mbd_tpu_torch.rl.wrappers", "mbd_tpu_torch.rl.batched_env",
+                   "mbd_tpu_torch.rl.ppo", "mbd_tpu_torch.rl.sac",
+                   "mbd_tpu_torch.rl.train"):
         assert module in listed.split()
     assert loaded.split() == ["LOADED"], loaded

@@ -66,7 +66,7 @@ import torch
 
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.ops import rollout_cuda
-from mbd_tpu_torch.rollout.fused import rollout_outputs
+from mbd_tpu_torch.rollout.fused import rollout_outputs, rollout_qs
 from mbd_tpu_torch.sim.system import FREE, HINGE, SLIDE
 
 SHIM = """
@@ -128,7 +128,7 @@ DRIVER = """
 extern "C" void cpu_rollout(const float* q0, const float* qd0,
                             int per_sample, const float* U, float* rews,
                             float* bad, float* qs, const float* xref,
-                            float* logpd, int N, int H) {
+                            float* logpd, float* qd_out, int N, int H) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(W);
@@ -144,7 +144,8 @@ extern "C" void cpu_rollout(const float* q0, const float* qd0,
         const int grp = t / kG, n = w * W + grp;
         const Group<kG> g{t % kG, t - t % kG, &bar, words, bits, ints};
         rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
-                           per_sample, U, rews, bad, qs, xref, logpd, N, H);
+                           per_sample, U, rews, bad, qs, xref, logpd, qd_out,
+                           N, H);
       });
     for (auto& t : lanes) t.join();
   }
@@ -176,7 +177,7 @@ def _cpu_kernel(env, out_dir, G):
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(so)
     lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
     lib.cpu_rollout.restype = None
     return lib
 
@@ -269,12 +270,13 @@ def _pusht_branches(q, lift=0.0):
 
 
 def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None,
-         G=None):
+         G=None, state_out=False):
     """One substep of the kernel source and of the plain version from the
     same inputs: (kernel outputs, plain outputs), each (rews [N, 1],
-    bad[, qs][, logpd]). ``sys`` replaces the env's model; ``inputs(sys,
-    gen)`` makes q0/qd0 (default ``_inputs``); G lanes per sample (default
-    the env's)."""
+    bad[, qs][, logpd][, qd']). ``sys`` replaces the env's model;
+    ``inputs(sys, gen)`` makes q0/qd0 (default ``_inputs``); G lanes per
+    sample (default the env's); ``state_out``, the state-out mode: the
+    velocities after the step, against ``rollout_qs``'s."""
     env = envs.get_env(name, device="cpu")
     env.n_frames = 1
     if sys is not None:
@@ -287,6 +289,7 @@ def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None,
     rews, bad = torch.empty((1, N)), torch.empty(N)
     qs = torch.empty((1, env.sys.nq, N)) if need_qs else None
     logpd = torch.empty(N) if demo else None
+    qd_out = torch.empty((env.sys.nv, N)) if state_out else None
     xref = env.xref_frames if demo else None
 
     def ptr(t):
@@ -294,10 +297,13 @@ def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None,
 
     lib.cpu_rollout(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
                     rews.data_ptr(), bad.data_ptr(), ptr(qs), ptr(xref),
-                    ptr(logpd), N, 1)
+                    ptr(logpd), ptr(qd_out), N, 1)
     state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
     plain = rollout_outputs(env, state, Y0s, need_qs=need_qs, demo=demo)
-    kernel = (rews.t(), bad) + tuple(t for t in (qs, logpd) if t is not None)
+    if state_out:
+        plain += (rollout_qs(env.sys, 1, q0, qd0, U)[1][0],)
+    kernel = (rews.t(), bad) + tuple(t for t in (qs, logpd, qd_out)
+                                     if t is not None)
     assert torch.isfinite(rews).all()
     assert torch.equal(kernel[1], plain[1])
     assert float((kernel[0] - plain[0]).abs().max()) <= ATOL
@@ -441,3 +447,23 @@ def test_kernel_source_active_and_inactive_rows(G, tmp_path, libm_math):
     # per sample, some limit rows and some contacts active, others not
     assert bool((past.any(0) & ~past.all(0)).all())
     assert bool((depth > 0).any()) and bool((depth <= 0).any())
+
+
+@pytest.mark.parametrize("name", ["hopper", "humanoidrun", "pushT"])
+def test_kernel_source_state_out(name, tmp_path, libm_math):
+    """The state-out mode (``env_step_cuda``'s launch: H = 1 with the
+    trace and the velocities after the step): q' and qd' are
+    ``rollout_qs``'s at H = 1 bit for bit, clamped as it clamps them, and
+    the rewards the plain version's; hopper (a planar chain), humanoidrun
+    (a free root) and pushT (the sphere–box pairs, the slider turned). The
+    plain version takes the C library's sqrtf, sinf and cosf
+    (``libm_math``): under ``rounded_math`` the turned slider's qd' was
+    off by up to 1.4e-6 in a few samples, where glibc's sinf of its angle
+    is not the correctly rounded value (its q' still agreed)."""
+    inputs = (lambda sys, gen: _pusht_inputs(sys, gen, True)) \
+        if name == "pushT" else None
+    kernel, plain, _ = _run(name, str(tmp_path), need_qs=True,
+                            inputs=inputs, state_out=True)
+    assert torch.equal(kernel[2], plain[2])
+    assert torch.equal(kernel[3], plain[3])
+    assert float(kernel[3].abs().max()) > 0
