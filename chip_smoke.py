@@ -110,11 +110,28 @@ Phases, each of which raises on failure (exit code 1):
    hopper SAC policy (``mbd_tpu_torch/assets/hopper_sac.npz``) by
    train.py's 8-seed eval from JAX's resets, its mean within the
    two-sample bound of ``docs/RESULTS_RL.json``'s;
-9. one JSON line with the analytic path's numbers and each phase's wall,
-   one with RL's, one with the kernels' numbers (with each baseline's
-   launches, final reward and wall, each batched path's, the viewer's and
-   the resume's launches, and the state-out mode's), then the device
-   line.
+9. the sample mesh (``mbd_tpu_torch/parallel``): hopper MBD and MPPI at
+   2048 / 50 / 100, humanoidtrack with the demo at 2048 / 50 / 100,
+   ``plan_batch`` of 2 hopper seeds and PPO on pushT (2048 envs, 2
+   iterations and one eval), each first in this process and then on 2
+   ranks spawned on the one card, joined by gloo over CUDA tensors: every
+   plan equal to this process's bit for bit on both ranks, PPO's
+   parameters equal on both and within 1e-4 of this process's, each rank
+   launching the kernel on its half of the samples only (hopper: 99
+   launches of 1024 and the final selection's 50 or 49); then hopper's
+   plan with NCCL at world size 1, bit for bit;
+10. MNIST weight diffusion (``blackbox/mnist.py``) at the published config
+   (Nsample 256, Ndiffuse 500), seeds 0–5: the mean final test accuracy
+   within the two-sample bound of JAX's over the same seeds
+   (``mbd_tpu_torch/assets/mnist_jax.json``), no kernel launched; then the
+   explainer's and the 1-D demo's numerics on the card against the CPU,
+   to 1e-6 (nothing drawn);
+11. one JSON line with the analytic path's numbers and each phase's wall
+   (``utils/profiling.py``'s ``Timer``), one with RL's, one with the
+   mesh's, MNIST's and the explainer's, one with the kernels' numbers
+   (with each baseline's launches, final reward and wall, each batched
+   path's, the viewer's, the resume's and the mesh's launches, and the
+   state-out mode's), then the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -1201,6 +1218,304 @@ def drive_rl_eval(torch, gpu):
                 per_seed=rews.tolist(), wall_s=wall)
 
 
+
+# The sample mesh (``mbd_tpu_torch/parallel``): MESH_RANKS ranks on the one
+# card, gloo over CUDA tensors (NCCL refuses two ranks on one card), then
+# NCCL at world size 1. PPO on pushT at its reference config for 2
+# iterations and one eval.
+MESH_RANKS = 2
+PPO_MESH_TIMESTEPS = 2 * 2048 * 20
+# a sharded PPO against one process: JAX's meshed bound
+# (tests/test_rl_mesh.py); the planners must agree bit for bit
+PPO_MESH_TOL = 1e-4
+# the model each mesh case runs (PPO: the state-out mode)
+MESH_ENV = {"hopper": "hopper", "hopper_mppi": "hopper",
+            "hopper_batch": "hopper", "humanoidtrack_demo": "humanoidtrack",
+            "pushT_ppo": "pushT_rl"}
+
+
+def _plan_fields(res) -> dict:
+    """A plan's result fields, on the host."""
+    fields = {k: getattr(res, k) for k in ("Ybars", "mu_0ts", "rews_trace",
+                                           "final_reward", "final_diverged")
+              if hasattr(res, k)}
+    return {k: v.cpu() if hasattr(v, "cpu") else v for k, v in fields.items()}
+
+
+def mesh_cases(mesh):
+    """Every mesh case on the card, on ``mesh`` (``None``: this process
+    alone): each one's results on the host, its launches by mode, the
+    samples of each launch, and its wall. Before the timed cases, an
+    untimed short run of each model (hopper, humanoidtrack + demo, pushT
+    PPO) takes the process's first launches and collectives, so that no
+    case's wall holds them. Run by each spawned rank, so it imports what
+    it needs itself."""
+    import dataclasses
+
+    import torch
+
+    from mbd_tpu_torch import envs
+    from mbd_tpu_torch.ops import rollout_cuda as rc
+    from mbd_tpu_torch.planners import mbd
+    from mbd_tpu_torch.planners import path_integral as pi
+    from mbd_tpu_torch.rl import ppo, train
+
+    samples = []
+    run = rc.Built.run
+
+    def counted(self, env, state0, U, *args, **kwargs):
+        samples.append(U.shape[0])
+        return run(self, env, state0, U, *args, **kwargs)
+
+    rc.Built.run = counted
+
+    def gen(s):
+        return torch.Generator("cuda").manual_seed(s)
+
+    hopper = envs.get_env("hopper", device="cuda")
+    track = envs.get_env("humanoidtrack", device="cuda")
+    pusht = envs.get_env("pushT", device="cuda")
+    ppo_cfg = ppo.PPOConfig(**dict(train.PPO_CONFIGS["pushT"],
+                                   num_timesteps=PPO_MESH_TIMESTEPS,
+                                   num_evals=1))
+
+    def ppo_run():
+        _, params, hist = ppo.train(pusht, ppo_cfg, mesh=mesh)
+        state = {f"{net}.{k}": v.detach().cpu() for net in
+                 ("policy", "value") for k, v in
+                 getattr(params, net).state_dict().items()}
+        state.update({f"obs_stats.{k}": v.detach().cpu() for k, v in
+                      vars(params.obs_stats).items()})
+        return dict(params=state, eval=hist[0]["eval/episode_reward"])
+
+    cases = {
+        "hopper": lambda: _plan_fields(mbd.plan(
+            hopper, mbd.recommended_config("hopper"), gen(0), mesh=mesh)),
+        "hopper_mppi": lambda: _plan_fields(pi.plan(
+            hopper, pi.recommended_config("hopper", pi.PathIntegralConfig(
+                update_method="mppi")), gen(0), mesh=mesh)),
+        "humanoidtrack_demo": lambda: _plan_fields(mbd.plan(
+            track, mbd.recommended_config("humanoidtrack", mbd.MBDConfig(
+                enable_demo=True)), gen(0), mesh=mesh)),
+        "hopper_batch": lambda: _plan_fields(mbd.plan_batch(
+            hopper, mbd.recommended_config("hopper"), [gen(0), gen(1)],
+            mesh=mesh)),
+        "pushT_ppo": ppo_run}
+    mbd.plan(hopper, dataclasses.replace(mbd.recommended_config("hopper"),
+                                         Ndiffuse=3), gen(0), mesh=mesh)
+    mbd.plan(track, dataclasses.replace(mbd.recommended_config(
+        "humanoidtrack", mbd.MBDConfig(enable_demo=True)), Ndiffuse=3),
+        gen(0), mesh=mesh)
+    ppo.train(pusht, dataclasses.replace(
+        ppo_cfg, num_timesteps=ppo_cfg.num_envs * ppo_cfg.unroll_length),
+        mesh=mesh)
+    out = {}
+    for name, fn in cases.items():
+        rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.STATE_LAUNCHES = 0
+        samples.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(result=result, launches=rc.LAUNCHES,
+                         demo_launches=rc.DEMO_LAUNCHES,
+                         state_launches=rc.STATE_LAUNCHES,
+                         samples=sorted(set(samples)),
+                         wall_s=time.perf_counter() - t0)
+    rc.Built.run = run
+    return out
+
+
+def _same(a, b) -> bool:
+    """Two results' fields (``_plan_fields``) equal bit for bit."""
+    import torch
+
+    return a.keys() == b.keys() and all(
+        torch.equal(v, b[k]) if isinstance(v, torch.Tensor) else v == b[k]
+        for k, v in a.items())
+
+
+def drive_mesh(torch, gpu):
+    """The mesh cases (``mesh_cases``) in this process and then on
+    MESH_RANKS spawned ranks on the one card (gloo): every plan's Ybars
+    (or mu_0ts), rews_trace, final_reward and flags equal this process's
+    bit for bit on every rank; PPO's parameters equal on every rank and
+    within PPO_MESH_TOL of this process's; each rank launches the kernel
+    on its shard only (hopper: 99 launches of 1024 samples and one of
+    the final selection's 50 or 49). Then hopper's plan again with NCCL
+    at world size 1, equal to this process's."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mbd_tpu_torch.parallel import sample_mesh, start_ranks
+
+    single = mesh_cases(None)
+    ranks = start_ranks(mesh_cases, MESH_RANKS, backend="gloo",
+                        device="cuda")
+    outs = ranks.wait()
+    report = {}
+    for name, ref in single.items():
+        per_rank = [o[name] for o in outs]
+        if name == "pushT_ppo":
+            p0 = per_rank[0]["result"]["params"]
+            same_ranks = all(torch.equal(o["result"]["params"][k], v)
+                             for o in per_rank[1:] for k, v in p0.items())
+            ref_p = ref["result"]["params"]
+            err = max(float((p0[k] - v).abs().max()) for k, v in
+                      ref_p.items())
+            exact = all(torch.equal(p0[k], v) for k, v in ref_p.items())
+            ok = same_ranks and all(torch.allclose(
+                p0[k], v, rtol=PPO_MESH_TOL, atol=PPO_MESH_TOL)
+                for k, v in ref_p.items())
+            detail = (f"parameters equal on every rank: {same_ranks}; "
+                      f"against one process max |Δ| {err:.3g} "
+                      f"({'bit for bit' if exact else 'not bit for bit'}); "
+                      f"eval {per_rank[0]['result']['eval']:.6f} against "
+                      f"{ref['result']['eval']:.6f}")
+        else:
+            ok = exact = all(_same(o["result"], ref["result"])
+                             for o in per_rank)
+            detail = f"bit for bit on every rank: {ok}"
+        print(f"mesh {name}: {detail}; launches per rank "
+              f"{[o['launches'] for o in per_rank]} of "
+              f"{[o['samples'] for o in per_rank]} samples (one process: "
+              f"{ref['launches']} of {ref['samples']}); wall per rank "
+              f"{[round(o['wall_s'], 3) for o in per_rank]} s against "
+              f"{ref['wall_s']:.3f} s in one process on {gpu}", flush=True)
+        if not ok:
+            raise AssertionError(f"mesh {name}: the sharded run differs")
+        report[name] = dict(
+            exact=exact, launches=[o["launches"] for o in per_rank],
+            samples=[o["samples"] for o in per_rank],
+            demo_launches=[o["demo_launches"] for o in per_rank],
+            state_launches=[o["state_launches"] for o in per_rank],
+            wall_s=[o["wall_s"] for o in per_rank],
+            single_wall_s=ref["wall_s"], single_launches=ref["launches"])
+    hop = report["hopper"]
+    for launches, samples in zip(hop["launches"], hop["samples"]):
+        if launches != 100 or max(samples) != 1024 or len(samples) != 2:
+            raise AssertionError(f"mesh hopper: {launches} launches of "
+                                 f"{samples} samples on a rank")
+    report["spawn_and_run_s"] = ranks.wall_s
+    # NCCL at world size 1, in this process
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), rank=0, world_size=1)
+    try:
+        from mbd_tpu_torch import envs
+        from mbd_tpu_torch.planners import mbd
+
+        mesh = sample_mesh()
+        res = mbd.plan(envs.get_env("hopper", device="cuda"),
+                       mbd.recommended_config("hopper"),
+                       torch.Generator("cuda").manual_seed(0), mesh=mesh)
+        nccl_ok = _same(_plan_fields(res), single["hopper"]["result"])
+        print(f"mesh hopper with NCCL at world size 1 on {mesh.device}: "
+              f"bit for bit {nccl_ok}, {len(mesh.collectives)} collectives",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store)
+    if not nccl_ok:
+        raise AssertionError("mesh: the NCCL plan differs")
+    report["nccl_exact"] = nccl_ok
+    return report
+
+
+def drive_mnist(torch, sq, gpu):
+    """MNIST weight diffusion at the published config (Nsample 256,
+    Ndiffuse 500) on the card, seeds 0–5: the 6-seed mean final test
+    accuracy within 3·√((σ_JAX² + σ²)/6) of JAX's over the same seeds
+    (``mbd_tpu_torch/assets/mnist_jax.json``); no kernel launches."""
+    from mbd_tpu_torch.blackbox import mnist
+    from mbd_tpu_torch.ops import rollout_cuda as rc
+
+    with open(os.path.join(os.path.dirname(mnist.ASSET),
+                           "mnist_jax.json")) as f:
+        ref = json.load(f)
+    cfg = mnist.MnistDiffusionConfig()
+    data = mnist.load_dataset()
+    rc.LAUNCHES = 0
+    accs, Js, walls = [], [], []
+    for seed in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, (J, acc) = mnist.train(cfg, torch.Generator("cuda").manual_seed(
+            seed), data=data)
+        accs.append(float(acc[-1]))
+        Js.append(float(J[-1]))
+        walls.append(time.perf_counter() - t0)
+        print(f"  mnist seed {seed}: test accuracy {accs[-1]:.4f}, J "
+              f"{Js[-1]:.6f}, {walls[-1]:.2f} s on {gpu}", flush=True)
+    b = sq.bound(ref["test_acc_mean"], ref["test_acc_std"], accs)
+    print(f"mnist, 6 seeds at {cfg.Nsample} / {cfg.Ndiffuse}: test accuracy "
+          f"{b['mean']:.4f} ± {b['std']:.4f} against JAX's "
+          f"{b['ref_mean']:.4f} ± {b['ref_std']:.4f}: |Δ| "
+          f"{abs(b['mean'] - b['ref_mean']):.4f}, bound {b['bound']:.4f}; "
+          f"{rc.LAUNCHES} kernel launches", flush=True)
+    if not b["ok"] or rc.LAUNCHES or not all(map(math.isfinite, Js)):
+        raise AssertionError("mnist: outside the bound, a launch, or a "
+                             "J not finite")
+    return dict(mean=b["mean"], std=b["std"], bound=b["bound"],
+                test_acc=accs, J=Js, wall_s=walls)
+
+
+# the explainer's and the 1-D demo's numerics, card against CPU: float64
+# both, the same normals; they differ only in libm's last bits and the
+# order of sums
+EXPLAINER_ATOL = 1e-6
+
+
+def explainer_numerics(torch, device) -> dict:
+    """The noising paths of the explainer's three acts, its score field,
+    and the 1-D demo's forward densities and reverse ascent on ``device``,
+    from normals drawn on the CPU; each on the host."""
+    from mbd_tpu_torch.cli import vis_explainer as ve
+    from mbd_tpu_torch.notebooks import demo_1d as d1
+
+    f64 = dict(dtype=torch.float64)
+    gen = torch.Generator().manual_seed(0)
+    grown = ve.R0 * ve.RSCALE
+    out = {}
+    for s in ve.SCALES:
+        for act, clean in ((1, ve.demo_traj(s, device=device)),
+                           (2, ve.demo_traj(s, grown, device=device)),
+                           (3, ve._model_traj(s, grown, device=device))):
+            z = torch.randn((24,) + tuple(clean.shape), generator=gen,
+                            **f64).to(device)
+            out[f"act{act} {s}"] = torch.stack(ve.noising_path(
+                clean, 24, normals=z)).cpu()
+    axis = torch.linspace(-1.8, 1.8, 13, **f64)
+    grid = torch.stack(torch.meshgrid(axis, axis, indexing="xy"), dim=-1)
+    out["score"] = ve.score_field(grid.to(device)).cpu()
+    alphas, ab, sig = d1.schedule(100, device)
+    y = torch.linspace(-2, 2, 400, device=device, **f64)
+    out["densities"] = d1.forward_densities(y, d1.target_density(y),
+                                            ab).cpu()
+    z = torch.randn((99, 512), generator=gen, **f64).to(device)
+    out["reverse"] = d1.reverse_mc(z, alphas, ab, sig, 100).cpu()
+    return out
+
+
+def drive_explainer(torch, gpu):
+    """``explainer_numerics`` on the card against the CPU, to
+    EXPLAINER_ATOL; nothing is drawn (the card's machine may lack
+    matplotlib)."""
+    cpu = explainer_numerics(torch, "cpu")
+    t0 = time.perf_counter()
+    card_ = explainer_numerics(torch, "cuda")
+    wall = time.perf_counter() - t0
+    err = max(float((card_[k] - v).abs().max()) for k, v in cpu.items())
+    print(f"explainer and demo_1d numerics, card against CPU: max |Δ| "
+          f"{err:.3g} over {len(cpu)} arrays (at most {EXPLAINER_ATOL}); "
+          f"{wall:.2f} s on {gpu}", flush=True)
+    if not err <= EXPLAINER_ATOL:
+        raise AssertionError("explainer: the card's numerics differ")
+    return dict(max_abs_err=err, wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -1413,13 +1728,15 @@ def main() -> int:
     import shutil
     import tempfile
 
-    walls = {}
+    from mbd_tpu_torch.utils.profiling import Timer
+
+    timer = Timer()
 
     def phase(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(torch, *args)
-        walls[name] = time.perf_counter() - t0
-        print(f"phase {name}: {walls[name]:.1f} s ({elapsed()})", flush=True)
+        with timer.phase(name):
+            out = fn(torch, *args)
+        print(f"phase {name}: {timer.as_dict()[name]:.1f} s ({elapsed()})",
+              flush=True)
         return out
 
     cli_out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -1440,6 +1757,10 @@ def main() -> int:
     rl = dict(ppo=phase("ppo", drive_ppo, rc, fused, gpu),
               sac=phase("sac", drive_sac, rc, fused, gpu),
               eval=phase("rl_eval", drive_rl_eval, gpu))
+    mesh = phase("mesh", drive_mesh, gpu)
+    others = dict(mnist=phase("mnist", drive_mnist, sq, gpu),
+                  explainer=phase("explainer", drive_explainer, gpu))
+    walls = timer.as_dict()
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
 
@@ -1460,6 +1781,9 @@ def main() -> int:
         "ppo": {k: v for k, v in rl["ppo"].items() if k != "history"},
         "sac": {k: v for k, v in rl["sac"].items() if k != "history"},
         "eval": rl["eval"]}}))
+    # the mesh (each case's launches, samples and walls per rank), MNIST
+    # and the explainer, which launch no kernel
+    print(json.dumps(dict(mesh=mesh, **others)))
     order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",
@@ -1480,6 +1804,11 @@ def main() -> int:
         "cli": stats[name].get("cli"),
         "vis_diffusion": stats[name].get("vis_diffusion"),
         "checkpoint": stats[name].get("checkpoint"),
+        # the sharded plans: each case's launches and their
+        # samples on each of the ranks
+        "mesh": {case: dict(launches=m["launches"], samples=m["samples"])
+                 for case, m in mesh.items() if isinstance(m, dict)
+                 and MESH_ENV.get(case) == name},
         # the committed plans replayed: the largest |kernel − committed|,
         # and the largest change one ulp of the resets makes
         "replay": {d: g for d, g in replay_gaps.items()
@@ -1503,6 +1832,10 @@ def main() -> int:
         "replaces": "mbd_tpu/ops/rollout_pallas.py:151",
         "modes": ["state_out"], "shape": f"{st['B']}x1",
         "launches": rl[algo]["launches"],
+        "mesh": {case: dict(launches=m["state_launches"],
+                            samples=m["samples"])
+                 for case, m in mesh.items() if isinstance(m, dict)
+                 and MESH_ENV.get(case) == f"{name}_rl"},
         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
         "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

@@ -576,14 +576,14 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
     if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
-    out = _built(env).run(env, state0, Y0s, need_qs, demo)
+    out = library(env).run(env, state0, Y0s, need_qs, demo)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
     return out
 
 
-def _built(env) -> Built:
+def library(env) -> Built:
     """``env``'s library, its header generated and its source hashed once
     per model, not per launch."""
     return env.sys.cached(f"rollout/{env.n_frames}/{env.kernel_reward!r}/"
@@ -617,7 +617,7 @@ def env_step_cuda(env, q: torch.Tensor, qd: torch.Tensor, u: torch.Tensor
             raise ValueError("q, qd and u must be float32 on one device")
     state0 = SimpleNamespace(pipeline_state=SimpleNamespace(
         q=q.contiguous(), qd=qd.contiguous()))
-    rews, bad, qs, qd1 = _built(env).run(env, state0, u.t()[:, None, :],
+    rews, bad, qs, qd1 = library(env).run(env, state0, u.t()[:, None, :],
                                          need_qs=True, state_out=True)
     LAUNCHES += 1
     STATE_LAUNCHES += 1

@@ -39,6 +39,16 @@ vmap engine), whose rollouts are never flagged, scores the demo with its
 ``plan`` can keep a checkpoint after every chunk of steps and resume
 from it (``checkpoint_path``, JAX's layout).
 
+Sharding (``mesh``, a ``parallel.SampleMesh``): every rank draws each
+step's full noise from the same generator, as one process does, forms
+all of Y0s and rolls out only its contiguous shard of the S·Nsample
+samples (one launch a step on the card); the per-sample rewards, flags
+and demo log-densities are gathered exactly onto every rank, where the
+statistics and the update run on the full vectors. So a sharded plan
+equals the single-process plan bit for bit, and no collective is as
+large as Y0s. The final selection's S·(Ndiffuse − 1) rollouts are split
+over the ranks the same way.
+
 Every tensor lives on ``env.device`` and the loop never waits on the
 device until the final evaluation. Random numbers come from an explicit
 ``torch.Generator``: ``env.reset`` draws the initial state from it, then
@@ -58,7 +68,7 @@ import torch
 
 from ..core.schedule import DiffusionSchedule, make_schedule
 from ..envs.physics import PhysicsEnv
-from ..ops.rollout_cuda import check_demo, rollout_rewards_cuda
+from ..ops.rollout_cuda import check_demo, library, rollout_rewards_cuda
 from ..rollout.rollout import eval_us, rollout_us
 
 
@@ -109,19 +119,21 @@ class MBDResult:
 
 
 def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
-                            sched: DiffusionSchedule) -> Callable:
+                            sched: DiffusionSchedule, mesh=None
+                            ) -> Callable:
     """The reverse step of S = len(states_init) independent denoises as
     ``reverse_once(Ybar_i, i, eps) → (Ybar_{i−1}, mean reward)``, with
     Ybar_i [S, H, nu], eps [S, Nsample, H, nu] the step's noise and the
     mean reward [S]: the S·N samples go out in one rollout, each from its
     own seed's reset state, and each seed's statistics are its own
-    (``per_seed``)."""
+    (``per_seed``). With ``mesh``, this rank rolls out its shard of the
+    S·N samples, which must divide evenly over the mesh."""
     if cfg.enable_demo and isinstance(env, PhysicsEnv):
         check_demo(env, cfg.Hsample)
     # the barycenter is a float32 contraction: keep it out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state0 = batch_states(env, states_init, cfg.Nsample)
+    state0, lo, hi = shard_samples(env, states_init, cfg.Nsample, mesh)
 
     def weigh(rewss, bad, Y0s, xref_logpds=None):
         """One seed's barycenter Ȳ and mean reward, from its rewards
@@ -139,8 +151,8 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
         Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i[:, None], -1.0,
                           1.0)
         S, N = Y0s.shape[:2]
-        out = rollout_batch(env, state0, Y0s.reshape(
-            (S * N,) + Y0s.shape[2:]), demo=cfg.enable_demo)
+        out = sharded_rollout(env, state0, Y0s.reshape(
+            (S * N,) + Y0s.shape[2:]), lo, hi, mesh, demo=cfg.enable_demo)
         Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
                              out[1].reshape(S, N), Y0s,
                              *[o.reshape(S, N) for o in out[2:]])
@@ -153,11 +165,11 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
 
 
 def make_reverse_once(env, cfg: MBDConfig, state_init,
-                      sched: DiffusionSchedule) -> Callable:
+                      sched: DiffusionSchedule, mesh=None) -> Callable:
     """One seed's reverse step, ``reverse_once(Ybar_i, i, eps) →
     (Ybar_{i−1}, mean reward)`` with Ybar_i [H, nu] and eps [Nsample, H,
     nu]: ``make_reverse_once_batch`` at S = 1."""
-    step = make_reverse_once_batch(env, cfg, [state_init], sched)
+    step = make_reverse_once_batch(env, cfg, [state_init], sched, mesh)
 
     def reverse_once(Ybar_i, i, eps):
         return tuple(o[0] for o in step(Ybar_i[None], i, eps[None]))
@@ -195,6 +207,56 @@ def batch_states(env, states, N: int):
         return seed_major(states, N)
     x = torch.stack([s.pipeline_state for s in states])
     return states[0].replace(pipeline_state=x.repeat_interleave(N, dim=0))
+
+
+def shard_states(env, state0, lo: int, hi: int):
+    """Samples [lo, hi) of ``batch_states``'s initial states."""
+    if isinstance(env, PhysicsEnv):
+        ps = state0.pipeline_state
+        if (lo, hi) == (0, ps.q.shape[1]):
+            return state0
+        return SimpleNamespace(pipeline_state=SimpleNamespace(
+            q=ps.q[:, lo:hi].contiguous(), qd=ps.qd[:, lo:hi].contiguous()))
+    return state0.replace(pipeline_state=state0.pipeline_state[lo:hi])
+
+
+def shard_samples(env, states_init, N: int, mesh):
+    """(state0, lo, hi): this rank's samples [lo, hi) of the S·N of S =
+    len(states_init) seeds and their initial states (``batch_states``,
+    ``shard_states``); all of them without ``mesh``. S·N must divide
+    evenly over the mesh. A physics env's ranks on the card load one
+    build of its kernel, which rank 0 makes first."""
+    state0 = batch_states(env, states_init, N)
+    SN = len(states_init) * N
+    if mesh is None:
+        return state0, 0, SN
+    lo, hi = mesh.shard(SN, "Nsample" if len(states_init) == 1
+                        else "S·Nsample")
+    if isinstance(env, PhysicsEnv) and env.device.type == "cuda":
+        mesh.first(lambda: library(env))
+    return shard_states(env, state0, lo, hi), lo, hi
+
+
+def sharded_rollout(env, state0, Y0s: torch.Tensor, lo: int, hi: int,
+                    mesh, demo: bool = False):
+    """``rollout_batch`` of the samples [lo, hi) of Y0s [n, H, nu] from
+    their initial states ``state0`` (``shard_states``'s), each output
+    then gathered to all n samples on every rank; without ``mesh``, the
+    rollout of all of Y0s. One collective: the outputs go as the columns
+    of one [n, H + 1 (+ 1)] tensor. The rewards come back laid out in
+    memory as the rollout gave them (the transpose of an [H, n] tensor
+    from the kernel and the plain engine), so that their mean over H sums
+    in the same order as in one process."""
+    out = rollout_batch(env, state0, Y0s[lo:hi], demo=demo)
+    if mesh is None:
+        return out
+    rews, H = out[0], out[0].shape[1]
+    full = mesh.gather(torch.cat([rews] + [o[:, None] for o in out[1:]],
+                                 dim=1), Y0s.shape[0], lo)
+    rews = full[:, :H].t().contiguous().t() if rews.t().is_contiguous() \
+        else full[:, :H].contiguous()
+    return (rews,) + tuple(full[:, H + k].contiguous()
+                           for k in range(len(out) - 1))
 
 
 def rollout_batch(env, state0, Y0s: torch.Tensor, demo: bool = False):
@@ -266,7 +328,7 @@ def barycenter(weights: torch.Tensor, Y0s: torch.Tensor) -> torch.Tensor:
 def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
          chunk_size: int = 0, progress_fn=None,
          eps: Optional[torch.Tensor] = None,
-         checkpoint_path: Optional[str] = None) -> MBDResult:
+         checkpoint_path: Optional[str] = None, mesh=None) -> MBDResult:
     """Run the full reverse diffusion of one seed on ``env.device``:
     ``plan_batch`` at S = 1, without the seed axis.
 
@@ -283,6 +345,11 @@ def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
     the interrupted one was (the same generator seed or ``state_init``,
     and ``eps``). A checkpoint of the JAX package cannot be resumed here:
     it stores a threefry key, the port a Philox generator's state.
+
+    ``mesh`` (a ``parallel.SampleMesh``): the Nsample samples are sharded
+    over its ranks, each of which calls ``plan`` with the same arguments
+    and gets the same result; Nsample must divide evenly. Only rank 0
+    writes the checkpoint.
     """
     if checkpoint_path is not None and chunk_size <= 0:
         raise ValueError("checkpoint_path needs chunk_size > 0: the "
@@ -291,7 +358,7 @@ def plan(env, cfg: MBDConfig, generator: torch.Generator, state_init=None,
                    None if state_init is None else [state_init],
                    chunk_size, progress_fn,
                    None if eps is None else eps[:, None],
-                   checkpoint_path)
+                   checkpoint_path, mesh)
     return MBDResult(Ybars=res.Ybars[0], rews_trace=res.rews_trace[0],
                      final_reward=res.final_reward[0],
                      final_diverged=bool(res.final_diverged[0]))
@@ -307,7 +374,7 @@ def draw_eps(generators: Sequence[torch.Generator], shape,
 
 def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
                states_init=None, chunk_size: int = 0, progress_fn=None,
-               eps: Optional[torch.Tensor] = None) -> MBDResult:
+               eps: Optional[torch.Tensor] = None, mesh=None) -> MBDResult:
     """S = len(generators) independent plans in one batch on
     ``env.device``: every step rolls the S·Nsample samples out in one
     launch, and the final selection takes one more.
@@ -318,10 +385,11 @@ def plan_batch(env, cfg: MBDConfig, generators: Sequence[torch.Generator],
     seed s sees exactly the noise of ``plan(env, cfg, generators[s])``.
     ``eps`` [Ndiffuse−1, S, Nsample, Hsample, nu] replaces the draws.
     ``progress_fn(step, mean reward over the seeds)`` as in ``plan``.
-    Returns an MBDResult with a leading seed axis.
+    ``mesh``: the S·Nsample samples of a step sharded over its ranks, as
+    in ``plan``. Returns an MBDResult with a leading seed axis.
     """
     return _denoise(env, cfg, generators, states_init, chunk_size,
-                    progress_fn, eps)
+                    progress_fn, eps, mesh=mesh)
 
 
 class Checkpoint:
@@ -337,9 +405,16 @@ class Checkpoint:
         ``Ybar`` [H, nu] and ``generator`` (the generator's state as
         uint8), written after the memmaps are flushed, so that a crash
         inside a chunk only runs that chunk again.
+
+    Under a mesh every rank resumes from the files, and only rank 0
+    (``writer``) creates and writes them; ``save`` ends with a barrier,
+    so that no rank reads a checkpoint rank 0 is still writing.
     """
 
-    def __init__(self, path: str, T: int, chunk_size: int, H: int, nu: int):
+    def __init__(self, path: str, T: int, chunk_size: int, H: int, nu: int,
+                 mesh=None):
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.path = path if path.endswith(".npz") else path + ".npz"
         base = self.path[:-len(".npz")]
         self.shape = (T + (-T) % chunk_size, H, nu)
@@ -352,6 +427,8 @@ class Checkpoint:
         iterates [start, H, nu] and rewards [start] so far), else
         (0, None, None, None)."""
         if not os.path.exists(self.path):
+            if not self.writer:
+                return 0, None, None, None
             self.Y_mm = np.lib.format.open_memmap(
                 self.y_path, mode="w+", dtype=np.float32, shape=self.shape)
             self.r_mm = np.lib.format.open_memmap(
@@ -362,8 +439,9 @@ class Checkpoint:
             start = int(meta["next_chunk"])
             Ybar = torch.from_numpy(meta["Ybar"]).to(device)[None]
             generator.set_state(torch.from_numpy(meta["generator"]))
-        self.Y_mm = np.lib.format.open_memmap(self.y_path, mode="r+")
-        self.r_mm = np.lib.format.open_memmap(self.r_path, mode="r+")
+        mode = "r+" if self.writer else "r"
+        self.Y_mm = np.lib.format.open_memmap(self.y_path, mode=mode)
+        self.r_mm = np.lib.format.open_memmap(self.r_path, mode=mode)
         return (start, Ybar, torch.from_numpy(np.array(self.Y_mm[:start])),
                 torch.from_numpy(np.array(self.r_mm[:start])))
 
@@ -371,6 +449,9 @@ class Checkpoint:
         """Chunk c's iterates [k, H, nu] and rewards [k] into the memmaps
         at rows c…c + k, then the meta file with next_chunk = c +
         chunk_size."""
+        if not self.writer:
+            self.mesh.barrier()
+            return
         self.Y_mm[c:c + len(Ybars)] = Ybars.cpu().numpy()
         self.r_mm[c:c + len(rews)] = rews.cpu().numpy()
         self.Y_mm.flush()
@@ -378,11 +459,13 @@ class Checkpoint:
         np.savez(self.path, next_chunk=c + chunk_size,
                  Ybar=Ybar.cpu().numpy(),
                  generator=generator.get_state().numpy())
+        if self.mesh is not None:
+            self.mesh.barrier()
 
 
 def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
-             progress_fn, eps, checkpoint_path: Optional[str] = None
-             ) -> MBDResult:
+             progress_fn, eps, checkpoint_path: Optional[str] = None,
+             mesh=None) -> MBDResult:
     """``plan_batch``; with ``checkpoint_path`` (one seed only, from
     ``plan``), the chunks are checkpointed and resumed (``Checkpoint``)."""
     device = env.device
@@ -392,7 +475,8 @@ def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
     if len(states_init) != S:
         raise ValueError(f"{len(states_init)} initial states for {S} seeds")
     sched = make_schedule(cfg.Ndiffuse, cfg.beta0, cfg.betaT, device=device)
-    reverse_once = make_reverse_once_batch(env, cfg, states_init, sched)
+    reverse_once = make_reverse_once_batch(env, cfg, states_init, sched,
+                                           mesh)
     nu = env.action_size
     shape = (cfg.Nsample, cfg.Hsample, nu)
     T = cfg.Ndiffuse - 1
@@ -405,9 +489,13 @@ def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
     start = 0
     ckpt = None
     if checkpoint_path is not None:
-        ckpt = Checkpoint(checkpoint_path, T, chunk_size, cfg.Hsample, nu)
+        ckpt = Checkpoint(checkpoint_path, T, chunk_size, cfg.Hsample, nu,
+                          mesh)
         start, Ybar_saved, Ybars_saved, rews_saved = ckpt.resume(
             generators[0], device)
+        if mesh is not None:
+            mesh.agree(start, "the step a checkpointed plan resumes at (its "
+                       "path must name the same files on every rank)")
         if start:
             Ybar = Ybar_saved
             Ybars = list(Ybars_saved[:T, None].to(device))
@@ -429,30 +517,33 @@ def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
             if progress_fn is not None:
                 progress_fn(t + 1, float(rew.mean()))
     Ybars = torch.stack(Ybars, dim=1)                    # [S, T, H, nu]
-    final_reward, final_diverged = evaluate_final(env, states_init, Ybars)
+    final_reward, final_diverged = evaluate_final(env, states_init, Ybars,
+                                                  mesh)
     return MBDResult(Ybars=Ybars, rews_trace=torch.stack(rews_trace, dim=1),
                      final_reward=final_reward,
                      final_diverged=final_diverged)
 
 
-def evaluate_final(env, states_init, plans: torch.Tensor):
+def evaluate_final(env, states_init, plans: torch.Tensor, mesh=None):
     """The final selection of S plans at once. For a physics env (JAX's
     plan_batch, mbd_tpu/planners/mbd.py:560-598): every iterate of
     ``plans`` [S, T, H, nu] in one rollout of S·T samples, each from its
     seed's reset state. Per seed, the last iterate when its own rollout is
     clean, else the best clean one (written into ``plans[:, -1]``); with
-    none clean, the last and True. For an analytic env (JAX's vmap branch,
-    :599-606 and :786-790): the last iterate's mean reward, flagged only
-    when it is not finite. Returns (final_reward [S], final_diverged [S]
-    bool)."""
+    none clean, the last and True; with ``mesh``, the S·T rollouts split
+    over its ranks (``SampleMesh.split``). For an analytic env (JAX's vmap
+    branch, :599-606 and :786-790): the last iterate's mean reward,
+    flagged only when it is not finite. Returns (final_reward [S],
+    final_diverged [S] bool)."""
     S, T = plans.shape[:2]
     if not isinstance(env, PhysicsEnv):
         final_reward = eval_us(env, batch_states(env, states_init, 1),
                                plans[:, -1]).mean(dim=-1)
         return final_reward, ~torch.isfinite(final_reward)
-    rews, bad = rollout_rewards_cuda(env, seed_major(states_init, T),
-                                     plans.reshape((S * T,)
-                                                   + plans.shape[2:]))
+    lo, hi = (0, S * T) if mesh is None else mesh.split(S * T)
+    rews, bad = sharded_rollout(
+        env, shard_states(env, seed_major(states_init, T), lo, hi),
+        plans.reshape((S * T,) + plans.shape[2:]), lo, hi, mesh)
     cand = rews.mean(dim=-1).reshape(S, T)
     feasible = (bad.reshape(S, T) == 0) & torch.isfinite(cand)
     masked = torch.where(feasible, cand, torch.full_like(cand,

@@ -24,7 +24,8 @@ best-clean-iterate fallback on a physics env, the last iterate on an
 analytic one (car2d), whose rollouts step the whole batch at once
 (``mbd.rollout_batch``). σ stays a tensor on the device and the loop
 never waits on the device until the final evaluation. ``eps`` replaces the
-drawn noise (the tests feed JAX's stream through it).
+drawn noise (the tests feed JAX's stream through it). ``mesh`` shards the
+samples over ranks as ``mbd.plan`` does, with the same result.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from .mbd import (HSAMPLE_RECOMMEND, NSAMPLE_RECOMMEND, TEMP_RECOMMEND,
-                  batch_states, draw_eps, evaluate_final, masked_softmax,
-                  per_seed, rollout_batch, standardized_rewards)
+                  draw_eps, evaluate_final, masked_softmax, per_seed,
+                  shard_samples, sharded_rollout, standardized_rewards)
 
 NREFINE_RECOMMEND = {"pushT": 200, "humanoidrun": 300}
 
@@ -113,7 +114,7 @@ class PathIntegralResult:
 
 
 def make_refine_step_batch(env, cfg: PathIntegralConfig,
-                           states_init) -> Callable:
+                           states_init, mesh=None) -> Callable:
     """The refine step of S = len(states_init) independent refinements as
     ``refine_step(mu, sigma, eps) → (mu', sigma', mean reward)``, with μ
     [S, H, nu], σ and the mean reward [S] and eps [S, Nsample, H, nu]
@@ -121,12 +122,13 @@ def make_refine_step_batch(env, cfg: PathIntegralConfig,
     σ): one rollout of the S·N samples, each from its own seed's reset
     state, and each seed's statistics and update its own
     (``mbd.per_seed``), as JAX's jax.vmap(update_fn) makes them
-    (mbd_tpu/planners/path_integral.py:167-168)."""
+    (mbd_tpu/planners/path_integral.py:167-168). With ``mesh``, this rank
+    rolls out its shard of the S·N samples (``mbd.sharded_rollout``)."""
     update_fn = UPDATE_FNS[cfg.update_method]
     # the weighted sums are float32 contractions: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state0 = batch_states(env, states_init, cfg.Nsample)
+    state0, lo, hi = shard_samples(env, states_init, cfg.Nsample, mesh)
 
     def update(rewss, bad, Y0s, mu, sigma):
         """One seed's update from its rewards [N, H], flags [N] and
@@ -142,8 +144,8 @@ def make_refine_step_batch(env, cfg: PathIntegralConfig,
         Y0s = torch.clamp(eps * sigma[:, None, None, None] + mu[:, None],
                           -1.0, 1.0)
         S, N = Y0s.shape[:2]
-        rewss, bad = rollout_batch(
-            env, state0, Y0s.reshape((S * N,) + Y0s.shape[2:]))
+        rewss, bad = sharded_rollout(
+            env, state0, Y0s.reshape((S * N,) + Y0s.shape[2:]), lo, hi, mesh)
         return per_seed(update, rewss.reshape(S, N, -1), bad.reshape(S, N),
                         Y0s, mu, sigma)
 
@@ -169,16 +171,17 @@ def _check_method(cfg: PathIntegralConfig) -> None:
 
 
 def plan(env, cfg: PathIntegralConfig, generator: torch.Generator,
-         state_init=None, eps: Optional[torch.Tensor] = None
+         state_init=None, eps: Optional[torch.Tensor] = None, mesh=None
          ) -> PathIntegralResult:
     """Refine one seed on ``env.device``: ``plan_batch`` at S = 1, without
     the seed axis. ``generator`` draws the reset state (unless
     ``state_init`` is given) and then every step's noise; ``eps``
     [Nrefine−1, Nsample, Hsample, nu] replaces the drawn noise, step by
-    step."""
+    step. ``mesh``: the samples sharded over its ranks, each of which
+    calls ``plan`` with the same arguments and gets the same result."""
     res = plan_batch(env, cfg, [generator],
                      None if state_init is None else [state_init],
-                     None if eps is None else eps[:, None])
+                     None if eps is None else eps[:, None], mesh)
     return PathIntegralResult(mu_0ts=res.mu_0ts[0],
                               rews_trace=res.rews_trace[0],
                               final_reward=res.final_reward[0],
@@ -187,15 +190,17 @@ def plan(env, cfg: PathIntegralConfig, generator: torch.Generator,
 
 def plan_batch(env, cfg: PathIntegralConfig,
                generators: Sequence[torch.Generator], states_init=None,
-               eps: Optional[torch.Tensor] = None) -> PathIntegralResult:
+               eps: Optional[torch.Tensor] = None, mesh=None
+               ) -> PathIntegralResult:
     """S = len(generators) independent refinements in one batch (cf.
     ``mbd.plan_batch``): one rollout of S·Nsample samples per step, σ [S],
     each seed's update its serial rule, and one rollout of the S·(Nrefine
     − 1) iterates for the final selection. The generators draw the resets
     and then each step's noise in seed order, so seed s sees exactly the
     noise of ``plan(env, cfg, generators[s])``; ``eps`` [Nrefine−1, S,
-    Nsample, Hsample, nu] replaces the draws. Returns a PathIntegralResult
-    with a leading seed axis."""
+    Nsample, Hsample, nu] replaces the draws; ``mesh`` shards the S·Nsample
+    samples as in ``plan``. Returns a PathIntegralResult with a leading
+    seed axis."""
     device = env.device
     _check_method(cfg)
     S = len(generators)
@@ -203,7 +208,7 @@ def plan_batch(env, cfg: PathIntegralConfig,
         states_init = [env.reset(g) for g in generators]
     if len(states_init) != S:
         raise ValueError(f"{len(states_init)} initial states for {S} seeds")
-    refine_step = make_refine_step_batch(env, cfg, states_init)
+    refine_step = make_refine_step_batch(env, cfg, states_init, mesh)
     nu = env.action_size
     shape = (cfg.Nsample, cfg.Hsample, nu)
     T = cfg.Nrefine - 1
@@ -221,7 +226,8 @@ def plan_batch(env, cfg: PathIntegralConfig,
         mu_0ts.append(mu)
         rews_trace.append(rew)
     mu_0ts = torch.stack(mu_0ts, dim=1)                  # [S, T, H, nu]
-    final_reward, final_diverged = evaluate_final(env, states_init, mu_0ts)
+    final_reward, final_diverged = evaluate_final(env, states_init, mu_0ts,
+                                                  mesh)
     return PathIntegralResult(mu_0ts=mu_0ts,
                               rews_trace=torch.stack(rews_trace, dim=1),
                               final_reward=final_reward,

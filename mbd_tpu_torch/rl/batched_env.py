@@ -18,6 +18,11 @@ against the JAX package's):
    marked so GAE can bootstrap through time limits;
  - AutoResetWrapper: on done, the cached FIRST reset state replaces the
    env's state (brax semantics: no re-randomisation).
+
+With a ``mesh`` (``parallel.SampleMesh``), each rank steps its share of
+the envs (one launch a rank and step) and the new states, rewards and
+flags are gathered exactly onto every rank; everything else runs on the
+whole batch on every rank, as in one process.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.rollout_cuda import env_step_cuda
+from ..ops.rollout_cuda import env_step_cuda, library
 
 
 @dataclass
@@ -43,7 +48,7 @@ class BatchedTrainEnv:
     """Auto-reset, episode-truncated, divergence-guarded batch-last env."""
 
     def __init__(self, env, episode_length: int,
-                 divergence_penalty: float = -10.0):
+                 divergence_penalty: float = -10.0, mesh=None):
         if not (hasattr(env, "sys") and hasattr(env, "reward_qs_b")):
             raise ValueError(
                 f"{type(env).__name__} has no batch-last path (sys + "
@@ -51,6 +56,9 @@ class BatchedTrainEnv:
         self.env = env
         self.episode_length = episode_length
         self.divergence_penalty = divergence_penalty
+        self.mesh = mesh
+        if mesh is not None and env.device.type == "cuda":
+            mesh.first(lambda: library(env))     # one build for the ranks
 
     def reset(self, generator: torch.Generator,
               num_envs: int) -> BatchedEnvState:
@@ -75,7 +83,7 @@ class BatchedTrainEnv:
         """One env step under the divergence guard: u [nu, B] →
         (q' [nq, B], qd' [nv, B], reward [B], bad [B]), a flagged sample
         rolled back to (q0, qd0) with the penalty as its reward."""
-        q1, qd1, reward, bad = env_step_cuda(self.env, q0, qd0, u)
+        q1, qd1, reward, bad = self.env_step(q0, qd0, u)
         bad = torch.maximum(bad, 1.0 - torch.isfinite(q1).all(0).to(
             q0.dtype))
         flagged = bad > 0
@@ -84,6 +92,23 @@ class BatchedTrainEnv:
         reward = torch.where(flagged, torch.full_like(
             reward, self.divergence_penalty), reward)
         return q1, qd1, reward, bad
+
+    def env_step(self, q0: torch.Tensor, qd0: torch.Tensor,
+                 u: torch.Tensor):
+        """``env_step_cuda`` of all B envs; under a mesh, of this rank's
+        share (``SampleMesh.split``), its outputs gathered as the rows of
+        one [B, nq + nv + 2] tensor."""
+        if self.mesh is None:
+            return env_step_cuda(self.env, q0, qd0, u)
+        B = u.shape[1]
+        lo, hi = self.mesh.split(B)
+        q1, qd1, reward, bad = env_step_cuda(self.env, q0[:, lo:hi],
+                                             qd0[:, lo:hi], u[:, lo:hi])
+        full = self.mesh.gather(torch.cat(
+            [q1, qd1, reward[None], bad[None]]).t(), B, lo).t()
+        nq, nv = q1.shape[0], qd1.shape[0]
+        return tuple(t.contiguous() for t in (
+            full[:nq], full[nq:nq + nv], full[nq + nv], full[nq + nv + 1]))
 
     def step(self, state: BatchedEnvState, first: BatchedEnvState,
              actions: torch.Tensor):
@@ -115,15 +140,19 @@ class TrainEnv:
     the first path for a physics env at ``action_repeat`` 1 and the second
     otherwise."""
 
-    def __init__(self, env, episode_length: int, action_repeat: int = 1):
+    def __init__(self, env, episode_length: int, action_repeat: int = 1,
+                 mesh=None):
         from .wrappers import wrap_for_training
 
         self.batch_last = hasattr(env, "sys") and \
             hasattr(env, "reward_qs_b") and hasattr(env, "obs_qs_b")
+        if mesh is not None and not self.batch_last:
+            raise ValueError("mesh training requires the batch-last "
+                             "rollout path (physics envs)")
         if self.batch_last:
             if action_repeat != 1:
                 raise ValueError("a physics env trains at action_repeat 1")
-            self.benv = BatchedTrainEnv(env, episode_length)
+            self.benv = BatchedTrainEnv(env, episode_length, mesh=mesh)
         else:
             self.wrapped = wrap_for_training(env, episode_length,
                                              action_repeat)

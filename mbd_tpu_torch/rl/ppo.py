@@ -9,6 +9,13 @@ bonus, one ``torch.optim.Adam`` over policy and value together. A physics
 env's unroll steps through ``rl/batched_env.py`` (one launch of the CUDA
 rollout kernel's state-out mode per step on the card); car2d's through
 the wrappers. Every random draw comes from ``draws`` (``networks.Draws``).
+
+Under a ``mesh`` (``parallel.SampleMesh``) each rank steps num_envs / size
+of the envs and the unroll's data is gathered onto every rank
+(``batched_env.py``). Every rank then draws the same actions, shuffles and
+entropy noise from the same generator and runs the same update on the
+whole batch, so the parameters stay identical on every rank without a
+broadcast, and equal to one process's.
 """
 
 from __future__ import annotations
@@ -107,21 +114,23 @@ def loss_fn(cfg: PPOConfig, params: PPOParams, batch, noise, norm):
 
 def train(env, cfg: PPOConfig, progress_fn: Optional[Callable] = None,
           params: Optional[PPOParams] = None,
-          draws: Optional[networks.Draws] = None):
+          draws: Optional[networks.Draws] = None, mesh=None):
     """Returns (make_inference_fn, params, history): one history entry per
     evaluation, with the iterations' mean losses and walls beside JAX's
     two keys.
 
     ``params`` (default: ``init_params(env, cfg.seed)``) and ``draws``
     (default: a generator on ``env``'s device seeded with ``cfg.seed``)
-    are taken as given. JAX's ``mesh=`` (the envs sharded over a mesh of
-    chips) is not ported: it waits for the port of ``parallel/mesh.py``
-    (ROADMAP.md, Queue 1)."""
+    are taken as given. ``mesh``: the envs sharded over its ranks, each of
+    which calls ``train`` with the same arguments; num_envs must divide
+    evenly, and the env must be a physics env."""
     device = env.device
+    if mesh is not None:
+        mesh.shard(cfg.num_envs, "num_envs")
+    tenv = TrainEnv(env, cfg.episode_length, cfg.action_repeat, mesh)
     params = params if params is not None else init_params(env, cfg.seed)
     draws = draws or networks.Draws(
         torch.Generator(device).manual_seed(cfg.seed))
-    tenv = TrainEnv(env, cfg.episode_length, cfg.action_repeat)
     optimizer = torch.optim.Adam(
         list(params.policy.parameters()) + list(params.value.parameters()),
         lr=cfg.learning_rate, fused=device.type == "cuda")

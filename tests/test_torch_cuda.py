@@ -268,3 +268,41 @@ def test_state_out_matches_plain_version(card, name, B):
     for k, p in zip(out, plain):
         assert k.shape == p.shape
         assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_mesh_gloo_two_ranks_on_one_card(card):
+    """Two gloo ranks on the one card (CUDA tensors) plan hopper equal to
+    one process bit for bit, each rank with its own launches (4 reverse
+    steps and the final selection)."""
+    import torch_mesh_ranks as R
+    from mbd_tpu_torch.parallel import start_ranks
+
+    ranks = start_ranks(R.card_plan, 2, backend="gloo", device="cuda")
+    single = R.card_plan(None)
+    for out in ranks.wait():
+        assert int(out["launches"]) == 5
+        for k in R.PLAN_FIELDS:
+            assert torch.equal(out[k], single[k]), k
+
+
+@pytest.mark.cuda
+def test_mesh_nccl_world_of_one(card, tmp_path):
+    """The NCCL backend at world size 1 in this process: the same plan as
+    without a mesh, bit for bit."""
+    import torch.distributed as dist
+
+    import torch_mesh_ranks as R
+    from mbd_tpu_torch.parallel import sample_mesh
+
+    single = R.card_plan(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = sample_mesh()
+        out = R.card_plan(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert mesh.collectives and mesh.device == torch.device("cuda:0")
+    for k in R.PLAN_FIELDS:
+        assert torch.equal(out[k], single[k]), k

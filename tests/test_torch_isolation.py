@@ -37,6 +37,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "mbd_tpu_torch.blackbox.bbo", "mbd_tpu_torch.rl.networks",
                    "mbd_tpu_torch.rl.wrappers", "mbd_tpu_torch.rl.batched_env",
                    "mbd_tpu_torch.rl.ppo", "mbd_tpu_torch.rl.sac",
-                   "mbd_tpu_torch.rl.train"):
+                   "mbd_tpu_torch.rl.train", "mbd_tpu_torch.parallel",
+                   "mbd_tpu_torch.parallel.mesh",
+                   "mbd_tpu_torch.blackbox.mnist",
+                   "mbd_tpu_torch.utils.profiling",
+                   "mbd_tpu_torch.utils.launcher",
+                   "mbd_tpu_torch.cli.vis_explainer",
+                   "mbd_tpu_torch.notebooks.demo_1d"):
         assert module in listed.split()
     assert loaded.split() == ["LOADED"], loaded

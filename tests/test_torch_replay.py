@@ -79,6 +79,24 @@ def test_replay_of_committed_plans(directory):
         directory, "cpu"), ((rews - ref["rewards"]).tolist(), bad.tolist())
 
 
+def test_op_trace_pairs_ops_and_finds_the_first_difference():
+    """``torch_op_trace``'s comparison (hopper seed 0's CPU-against-card
+    diagnosis): logs whose names part where one torch makes extra copies
+    are paired again, and the first op with equal inputs and other
+    outputs is found, not the ops downstream of it."""
+    import torch_op_trace as T
+
+    a = [("aten.mul", ["x"], ["y"]), ("aten.cos", ["y"], ["c"]),
+         ("aten.add", ["c"], ["d"]), ("aten.sin", ["d"], ["e"]),
+         ("aten.sub", ["e"], ["f"]), ("aten.neg", ["f"], ["g"])]
+    b = [("aten._to_copy", ["x"], ["x"]), ("aten.mul", ["x"], ["y"]),
+         ("aten.cos", ["y"], ["c'"]), ("aten.add", ["c'"], ["d'"]),
+         ("aten.sin", ["d'"], ["e'"]), ("aten.sub", ["e'"], ["f'"]),
+         ("aten.neg", ["f'"], ["g'"])]
+    assert T.align(a, b) == [(i, i + 1) for i in range(6)]
+    assert T.first_difference(a, b) == ((1, 2), 5, (0, 1))
+
+
 def jax_replay(directory, perturbations=0):
     """The committed plans through JAX's fused engine on this CPU, from
     the resets and, after them, from ``perturbations`` copies of the
