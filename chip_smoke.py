@@ -11,9 +11,13 @@ Phases, each of which raises on failure (exit code 1):
    layout (lanes per sample G, shared bytes per block,
    registers and local bytes per thread, resident warps per SM, SMs in
    use);
-2. while they build, the operations per sample and env step of the plain
-   version (the torch engine), counted on the CPU for each kernel's bound,
-   then the plain version on the card on the inputs of every comparison
+2. while they build, the plain version (the torch engine) on the card on
+   the inputs of every comparison, recording the constraint rows that
+   act (``utils/work.py::acting_rows``): each kernel's bound counts what
+   those inputs need, ``utils/work.py``'s fixed ``WORK`` per sample and
+   env step less ``ROW_WORK`` for each idle row (their CPU test holds
+   the live counts equal to the tables), and the bound lines print the
+   bound of ``WORK`` beside it,
    but the paths' own: all nine models at N = 2048, H = 4; hopper at a
    ragged N = 2047 and with the position trace (``need_qs``); walker2d
    with per-sample initial states; humanoidrun at a ragged N = 8191 and
@@ -126,9 +130,16 @@ Phases, each of which raises on failure (exit code 1):
    (``mbd_tpu_torch/assets/mnist_jax.json``), no kernel launched; then the
    explainer's and the 1-D demo's numerics on the card against the CPU,
    to 1e-6 (nothing drawn);
-11. one JSON line with the analytic path's numbers and each phase's wall
+11. the bench, ``python -m mbd_tpu_torch.bench --cell hopper --cell
+   humanoidrun_n1024 --Ndiffuse 12 --Hsample 10``, in a subprocess,
+   checked by ``bench.short_run``: its line parsed, every cell
+   ``correct`` with every field and its parity, the cuts listed in
+   ``reduced``, its ``mfu`` and the kernel's ``roofline_share`` in
+   (0, 1.05], 12 launches a plan;
+12. one JSON line with the analytic path's numbers and each phase's wall
    (``utils/profiling.py``'s ``Timer``), one with RL's, one with the
-   mesh's, MNIST's and the explainer's, one with the kernels' numbers
+   mesh's, MNIST's and the explainer's, the bench's line, one with the
+   kernels' numbers
    (with each baseline's launches, final reward and wall, each batched
    path's, the viewer's, the resume's and the mesh's launches, and the
    state-out mode's), then the device line.
@@ -146,7 +157,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
@@ -192,31 +202,6 @@ BASELINES = ("mppi", "cem", "cma-es")
 # final selection's mean over H may round otherwise.
 BATCH_SERIAL_ATOL = 5e-3
 SHORT_PLAN = dict(Nsample=256, Hsample=10, Ndiffuse=5)
-# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, and
-# device memory
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# aten ops that move or make data and compute nothing; every other op is
-# counted at one operation per output element (per input element for a
-# reduction)
-MOVES = {
-    "view", "_unsafe_view", "_reshape_alias", "reshape", "expand", "permute",
-    "transpose", "t", "select", "slice", "unsqueeze", "squeeze", "cat",
-    "stack", "clone", "copy_", "_to_copy", "contiguous", "empty",
-    "empty_like", "empty_strided", "zeros", "zeros_like", "ones",
-    "ones_like", "full", "full_like", "new_zeros", "new_ones", "new_full",
-    "new_empty", "lift_fresh", "lift_fresh_copy", "detach", "alias",
-    "as_strided", "split", "split_with_sizes", "unbind", "index",
-    "index_select", "_local_scalar_dense", "scalar_tensor", "fill_", "zero_",
-    "arange", "repeat"}
-REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "argmin",
-              "argmax", "linalg_vector_norm", "prod"}
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(report: str) -> str:
@@ -239,39 +224,6 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def ops_per_sample_step(torch, envs, name, demo) -> int:
-    """Operations of the plain version for one sample and one env step
-    (n_frames substeps, the reward and, with ``demo``, the demo score),
-    counted by a dispatch mode over a rollout at N = 1, H = 1 on the CPU:
-    one per output element of each computing aten op, one per input
-    element of a reduction, a sine or a square root as one. The position
-    trace adds no operation, only bytes."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    from mbd_tpu_torch.rollout.fused import rollout_outputs
-
-    class Count(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            op = func.overloadpacket.__name__
-            if op in REDUCTIONS:
-                self.ops += args[0].numel()
-            elif op not in MOVES:
-                outs = out if isinstance(out, (tuple, list)) else (out,)
-                self.ops += sum(o.numel() for o in outs
-                                if isinstance(o, torch.Tensor))
-            return out
-
-    env = envs.get_env(name, device="cpu")
-    state0 = env.reset(torch.Generator().manual_seed(0))
-    with Count() as count:
-        rollout_outputs(env, state0, torch.zeros((1, 1, env.action_size)),
-                        demo=demo)
-    return count.ops
-
-
 class Case:
     """One comparison: inputs, and the plain version's outputs and time."""
 
@@ -281,6 +233,7 @@ class Case:
         just driven; the comparison then starts from the plan's initial
         state, with the final plan as sample 0."""
         from mbd_tpu_torch.rollout.fused import rollout_outputs
+        from mbd_tpu_torch.utils.work import acting_rows
 
         self.name, self.N, self.H, self.per_sample = name, N, H, per_sample
         self.need_qs, self.demo, self.timed = need_qs, demo, timed
@@ -310,9 +263,10 @@ class Case:
                                     device="cuda") - 1.0
         if path is not None:
             self.Y0s[0] = plan
-        self.plain_ms, self.plain = time_ms(
-            torch, lambda: rollout_outputs(env, state0, self.Y0s, need_qs,
-                                           demo), 1)
+        # the plain version's outputs, and the constraint rows that acted
+        self.plain_ms, (self.plain, self.rows) = time_ms(
+            torch, lambda: acting_rows(rollout_outputs, env, state0,
+                                       self.Y0s, need_qs, demo), 1)
 
     def modes(self):
         return ["base"] + ["need_qs"] * self.need_qs + ["demo"] * self.demo
@@ -325,27 +279,34 @@ class Case:
                 f"{self.per_sample} modes={'+'.join(self.modes())}{census}")
 
     def bytes(self):
-        """What the kernel must move: U, the initial state and the demo
-        frames read once, every output written once."""
-        sys, N, H = self.env.sys, self.N, self.H
-        floats = N * H * sys.nu + (sys.nq + sys.nv) * (N if self.per_sample
-                                                       else 1)
-        floats += N * H + N                                # rews, bad
-        floats += H * sys.nq * N if self.need_qs else 0
-        floats += H * self.env.xref.shape[0] * 3 + N if self.demo else 0
-        return 4 * floats
+        """What the kernel must move (``utils/work.py::rollout_bytes``)."""
+        from mbd_tpu_torch.utils.work import rollout_bytes
 
-    def bound(self, ops_per_step):
-        """The least time the card could take: the larger of the plain
-        version's operations (``ops_per_step`` per sample and env step)
-        over the FP32 peak and the bytes over the memory rate; (ms, which
-        of the two)."""
-        t_ops = ops_per_step * self.N * self.H / PEAK_FLOPS * 1e3
-        t_bytes = self.bytes() / PEAK_BYTES * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
+        return rollout_bytes(self.env, self.N, self.H, self.per_sample,
+                             self.need_qs, self.demo)
 
-    def check(self, torch, rc, ops_per_step, reps=3):
+    def ops_per_sample_step(self):
+        """What these inputs need per sample and step: ``WORK`` less
+        ``ROW_WORK`` for each row the plain run saw idle
+        (``utils/work.py::needed_per_sample_step``)."""
+        from mbd_tpu_torch.utils.work import needed_per_sample_step
+
+        return needed_per_sample_step(self.name, self.demo, self.rows,
+                                      self.N * self.H)
+
+    def bound(self, every_row=False):
+        """The least time the card could take for what these inputs need
+        (``utils/work.py::rollout_bound``), or with ``every_row`` for
+        ``WORK`` (every row solved, as the plain version does); (ms, which
+        of operations or bytes bounds it)."""
+        from mbd_tpu_torch.utils.work import rollout_bound
+
+        return rollout_bound(self.env, self.name, self.N, self.H,
+                             self.per_sample, self.need_qs, self.demo,
+                             None if every_row else
+                             self.ops_per_sample_step())
+
+    def check(self, torch, rc, reps=3):
         """The kernel on the same inputs: max |Δ| over its outputs, its
         ms, and its bound."""
         out = rc.rollout_rewards_cuda(self.env, self.state0, self.Y0s,
@@ -369,12 +330,15 @@ class Case:
                                  f"equal {flags})")
         ms, _ = time_ms(torch, lambda: rc.rollout_rewards_cuda(
             self.env, self.state0, self.Y0s, self.need_qs, self.demo), reps)
-        bound_ms, bound_by = self.bound(ops_per_step)
+        bound_ms, bound_by = self.bound()
         shown = ", ".join(f"max|Δ{k}| {v:.3g}" for k, v in errs.items())
+        r = self.rows
         print(f"check {self.label()}: {shown} (atol {ATOL:g}), flags equal, "
               f"{int(out[1].sum())} flagged; kernel {ms:.3f} ms, plain "
               f"{self.plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+              f"({bound_by}; rows acting: {r.contacts_acting} of "
+              f"{r.contacts} contact, {r.limits_acting} of {r.limits} "
+              f"limit)", flush=True)
         return err, ms, bound_ms, bound_by
 
 
@@ -1025,11 +989,13 @@ def rl_states(torch, env, gen, B):
     return q.contiguous(), qd.contiguous()
 
 
-def drive_rl_step(torch, envs, rc, fused, ops, gpu):
+def drive_rl_step(torch, envs, rc, fused, gpu):
     """The state-out mode against the plain engine on the card, bit for
     bit (q', qd', rewards, flags), on hopper, pushT and humanoidrun at
     B = 1, 8, 128 and 2048 from per-sample states with flagged samples;
     timed at RL_TIMED's B, with its bound."""
+    from mbd_tpu_torch.utils import work
+
     out = {}
     for name in RL_STEP_ENVS:
         env = envs.get_env(name, device="cuda")
@@ -1039,8 +1005,9 @@ def drive_rl_step(torch, envs, rc, fused, ops, gpu):
             q, qd = rl_states(torch, env, gen, B)
             u = 2.0 * torch.rand((env.action_size, B), generator=gen,
                                  device="cuda") - 1.0
-            plain_ms, plain = time_ms(
-                torch, lambda: fused.env_step_outputs(env, q, qd, u), 1)
+            plain_ms, (plain, rows) = time_ms(
+                torch, lambda: work.acting_rows(fused.env_step_outputs, env,
+                                                q, qd, u), 1)
             got = rc.env_step_cuda(env, q, qd, u)
             torch.cuda.synchronize()
             diff = [k for k, a, b in zip(("q", "qd", "reward", "bad"), got,
@@ -1061,13 +1028,12 @@ def drive_rl_step(torch, envs, rc, fused, ops, gpu):
             ms, _ = time_ms(torch, lambda: rc.env_step_cuda(env, q, qd, u),
                             50)
             floats = B * (2 * (sys_.nq + sys_.nv) + sys_.nu + 2)
-            t_ops = ops[name, False] * B / PEAK_FLOPS * 1e3
-            t_bytes = 4 * floats / PEAK_BYTES * 1e3
+            ops = work.needed_per_sample_step(name, False, rows, B) * B
+            bound_ms, bound_by = work.bound_ms(ops, 4 * floats)
             out[name] = dict(
                 B=B, ms=ms, max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                operations=ops[name, False] * B, bytes=4 * floats)
+                bound_ms=bound_ms, bound_by=bound_by,
+                operations=ops, bytes=4 * floats)
             print(f"  state-out {name} B={B}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.1f} ms, bound {out[name]['bound_ms']:.6f} ms "
                   f"({out[name]['bound_by']}) on {gpu}", flush=True)
@@ -1516,6 +1482,34 @@ def drive_explainer(torch, gpu):
     return dict(max_abs_err=err, wall_s=wall)
 
 
+# The bench's phase: two cells, the diffusion cut to 12 steps and the
+# horizon to 10 (its plain engine then checks the last step in seconds)
+BENCH_CELLS = ("hopper", "humanoidrun_n1024")
+BENCH_NDIFFUSE, BENCH_HSAMPLE = 12, 10
+
+
+def drive_bench(torch, gpu):
+    """``python -m mbd_tpu_torch.bench`` on ``BENCH_CELLS``, cut, checked by
+    ``bench.short_run`` (each cell correct with every field, its parity,
+    the cuts in ``reduced``, Ndiffuse launches a plan, ``mfu`` and the
+    kernel's roofline share in (0, 1.05]); returns the line."""
+    from mbd_tpu_torch import bench
+
+    line = bench.short_run(BENCH_CELLS, BENCH_NDIFFUSE, BENCH_HSAMPLE)
+    for name, cell in line["cells"].items():
+        layer = cell["per_layer"]
+        print(f"bench {name}: wall {cell['wall_s']:.4f} s, mfu "
+              f"{cell['mfu']:.6f}, kernel {layer['kernel_ms_per_launch']:.4f}"
+              f" ms a launch against a bound of "
+              f"{layer['bound_ms_per_launch']:.4f} (roofline share "
+              f"{layer['roofline_share']:.6f}; rows acting "
+              f"{cell['rows_acting']}), busy share "
+              f"{layer['busy_share']:.6f}, {layer['launches']} launches, "
+              f"parity max|Δ| {cell['parity']['max_abs_err']:.3g}, reduced "
+              f"{cell['reduced']} on {gpu}", flush=True)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1532,6 +1526,7 @@ def main() -> int:
     from mbd_tpu_torch.planners import mbd
     from mbd_tpu_torch.planners import path_integral as pi
     from mbd_tpu_torch.rollout import fused
+    from mbd_tpu_torch.utils import profiling, work
     import seed_quality as sq
 
     t_start = time.perf_counter()
@@ -1539,7 +1534,7 @@ def main() -> int:
     def elapsed():
         return f"t = {time.perf_counter() - t_start:.0f} s"
 
-    gpu = card()
+    gpu = profiling.card()
     print(gpu)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -1639,16 +1634,6 @@ def main() -> int:
              demo=True),
         dict(name="pushT", N=N_CHECK, H=H_CHECK, per_sample=True,
              need_qs=True)]
-    keys = {(spec["name"], spec.get("demo", False)) for spec in shapes}
-    keys |= {(name, shape.get("demo", False))
-             for name, (_, _, shape) in paths.items()}
-    ops = {}
-    for key in sorted(keys):
-        ops[key] = ops_per_sample_step(torch, envs, *key)
-        print(f"plain version {key[0]}: {ops[key]} operations per sample "
-              f"and env step{' with the demo' if key[1] else ''} "
-              f"({elapsed()})", flush=True)
-
     def plain(**spec):
         case = Case(torch, envs, gen=gen, **spec)
         print(f"plain {case.label()}: {case.plain_ms:.1f} ms ({elapsed()})",
@@ -1663,14 +1648,16 @@ def main() -> int:
 
     def check(case):
         st = stats[case.name]
-        err, ms, bound_ms, bound_by = case.check(
-            torch, rc, ops[case.name, case.demo])
+        err, ms, bound_ms, bound_by = case.check(torch, rc)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st["modes"].update(case.modes())
         if case.timed:
             st.update(ms=ms, plain_ms=case.plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, shape=f"{case.N}x{case.H}",
-                      operations=ops[case.name, case.demo] * case.N * case.H,
+                      operations=case.ops_per_sample_step() * case.N
+                      * case.H,
+                      every_row=(work.WORK[case.name, case.demo] * case.N
+                                 * case.H, case.bound(every_row=True)[0]),
                       bytes=case.bytes())
 
     for future in as_completed(builds):
@@ -1753,13 +1740,14 @@ def main() -> int:
     analytic = dict(car2d=phase("car2d", drive_car2d, envs, rc, fused, mbd,
                                 pi, sq, gpu),
                     bbo=phase("bbo", drive_bbo, sq, gpu))
-    rl_step = phase("rl_step", drive_rl_step, envs, rc, fused, ops, gpu)
+    rl_step = phase("rl_step", drive_rl_step, envs, rc, fused, gpu)
     rl = dict(ppo=phase("ppo", drive_ppo, rc, fused, gpu),
               sac=phase("sac", drive_sac, rc, fused, gpu),
               eval=phase("rl_eval", drive_rl_eval, gpu))
     mesh = phase("mesh", drive_mesh, gpu)
     others = dict(mnist=phase("mnist", drive_mnist, sq, gpu),
                   explainer=phase("explainer", drive_explainer, gpu))
+    bench = phase("bench", drive_bench, gpu)
     walls = timer.as_dict()
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
@@ -1769,9 +1757,12 @@ def main() -> int:
 
     for name in ENVS:
         st = stats[name]
-        print(f"bound {name} {st['shape']}: {st['operations']} operations, "
-              f"{st['bytes']} bytes → {st['bound_ms']:.4f} ms "
-              f"({st['bound_by']}); kernel {st['ms']:.3f} ms", flush=True)
+        print(f"bound {name} {st['shape']}: {st['operations']:.0f} "
+              f"operations, {st['bytes']} bytes → {st['bound_ms']:.4f} ms "
+              f"({st['bound_by']}; counting every row as the plain version "
+              f"does, {st['every_row'][0]} operations → "
+              f"{st['every_row'][1]:.4f} ms); kernel {st['ms']:.3f} ms",
+              flush=True)
     # the analytic path (car2d, bbo) launches no kernel: its numbers and
     # every phase's wall on a line of their own
     print(json.dumps(dict(analytic, phase_walls_s=walls)))
@@ -1784,6 +1775,8 @@ def main() -> int:
     # the mesh (each case's launches, samples and walls per rank), MNIST
     # and the explainer, which launch no kernel
     print(json.dumps(dict(mesh=mesh, **others)))
+    # the bench's own line (two cells, the diffusion cut)
+    print(json.dumps(bench))
     order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",

@@ -64,6 +64,11 @@ LAUNCHES = 0
 DEMO_LAUNCHES = 0
 QS_LAUNCHES = 0
 STATE_LAUNCHES = 0
+# The sample-steps (N·H per call) rolled out, by the kernel or, on a CPU
+# tensor, by its plain version; of those, the ones with demo=True. A
+# plan's work is Σ utils/work.py's WORK · sample-steps.
+SAMPLE_STEPS = 0
+DEMO_SAMPLE_STEPS = 0
 # The kernel indexes its arrays with 32-bit ints: the largest, qs's
 # (t·nq + i)·N + n, must stay below 2³¹.
 MAX_INDEX = 2 ** 31 - 1
@@ -549,13 +554,16 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES
+    global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES, SAMPLE_STEPS, \
+        DEMO_SAMPLE_STEPS
     sys = env.sys
     check_supported(sys)
     N, H, nu = Y0s.shape
     if demo:
         check_demo(env, H)
     if not Y0s.is_cuda:
+        SAMPLE_STEPS += N * H
+        DEMO_SAMPLE_STEPS += N * H * int(demo)
         return rollout_outputs(env, state0, Y0s, need_qs, demo)
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
@@ -580,6 +588,8 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
+    SAMPLE_STEPS += N * H
+    DEMO_SAMPLE_STEPS += N * H * int(demo)
     return out
 
 

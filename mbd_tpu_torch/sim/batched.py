@@ -578,6 +578,47 @@ def collide_b(sys: System, kin: KinB) -> List[ContactB]:
 # constraint rows + projected Gauss–Seidel sweep
 # ---------------------------------------------------------------------------
 
+# When a list, each substep of the plain engine appends its active
+# constraint rows (force cap not 0, the rows the kernel solves; a NaN cap
+# acts) as (contacts acting, contact rows, limits acting, limit rows), the
+# acting counts summed over the samples as tensors, the rows Python ints
+# (rows · samples). ``utils/work.py::acting_rows`` sets and reads it.
+ROW_LOG: Optional[list] = None
+
+
+def _jrows(S_st: Arr, w_st: Arr, sgn_b: Arr) -> Arr:
+    """Signed Jacobian rows sgn[c,i]·Σ_k S[i,k]·w[c,k] → [C', nv, N]."""
+    acc = None
+    for kk in range(6):
+        term = S_st[None, :, kk] * w_st[:, kk][:, None]
+        acc = term if acc is None else acc + term
+    return sgn_b[:, :, None] * acc
+
+
+def _contact_dirs(S_st: Arr, pos_st: Arr, nrm_st: Arr, v_rel: Arr,
+                  vn_c: Arr, mu_st: Arr, sgn_c: Arr, eps: float):
+    """The contact points' Jacobian rows and force-direction rows (normal
+    less μ times the unit slip): work that a row whose cap is 0 does not
+    need (the kernel skips it, ``utils/work.py::ROW_WORK`` counts it)."""
+    vt = v_rel - vn_c[:, None] * nrm_st
+    t_dir = vt / torch.sqrt(dot3_c(vt, vt) + eps * eps)[:, None]
+    d = nrm_st - mu_st[:, :, None] * t_dir
+    return (_jrows(S_st, torch.cat([cross_c(pos_st, nrm_st), nrm_st], dim=1),
+                   sgn_c),
+            _jrows(S_st, torch.cat([cross_c(pos_st, d), d], dim=1), sgn_c))
+
+
+def _row_solve(fac: LDL, J_all: Arr, cap_st: Arr, touched):
+    """Every row's M⁻¹Jᵀ (one tree solve over the [C, N] stack), effective
+    mass and force bound: work that a row whose cap is 0 does not need."""
+    x = ldl_solve(fac, [J_all[:, i] if touched[i] else None
+                        for i in range(fac.nv)])
+    zc = torch.zeros_like(cap_st)
+    MinvJ_st = torch.stack([zc if xi is None else xi for xi in x], dim=1)
+    m_eff_st = 1.0 / (fold1(J_all * MinvJ_st) + f32(1e-8))
+    return MinvJ_st, m_eff_st, m_eff_st * cap_st
+
+
 def _precompute_rows_stacked(sys: System, kin: KinB, v_b: List[Arr],
                              cons: List[ContactB], fac: LDL, h: float,
                              qd: Arr, limits: List[Tuple[int, float, Arr]]):
@@ -608,14 +649,6 @@ def _precompute_rows_stacked(sys: System, kin: KinB, v_b: List[Arr],
 
     S_st = torch.stack(kin.S)                       # [nv, 6, N]
 
-    def jrows(w_st, sgn_b):
-        """Signed Jacobian rows sgn[c,i]·Σ_k S[i,k]·w[c,k] → [C', nv, N]."""
-        acc = None
-        for kk in range(6):
-            term = S_st[None, :, kk] * w_st[:, kk][:, None]
-            acc = term if acc is None else acc + term
-        return sgn_b[:, :, None] * acc
-
     J_parts, row_parts = [], []
     vn_parts, vbias_parts, cap_parts = [], [], []
     if Cc:
@@ -631,14 +664,10 @@ def _precompute_rows_stacked(sys: System, kin: KinB, v_b: List[Arr],
 
         v_rel = pvel(vb_b) - pvel(vb_a)
         vn_c = dot3_c(v_rel, nrm_st)
-        vt = v_rel - vn_c[:, None] * nrm_st
-        t_dir = vt / torch.sqrt(dot3_c(vt, vt) + eps * eps)[:, None]
-        d = nrm_st - mu_st[:, :, None] * t_dir
-        sgn_c = sgn_t[:Cc]
-        J_parts.append(jrows(torch.cat([cross_c(pos_st, nrm_st), nrm_st],
-                                       dim=1), sgn_c))
-        row_parts.append(jrows(torch.cat([cross_c(pos_st, d), d], dim=1),
-                               sgn_c))
+        J_c, rows_c = _contact_dirs(S_st, pos_st, nrm_st, v_rel, vn_c, mu_st,
+                                    sgn_t[:Cc], eps)
+        J_parts.append(J_c)
+        row_parts.append(rows_c)
         a_ref = torch.clamp_min(k * dep_st - bdamp * vn_c, 0.0)
         vn_parts.append(vn_c)
         vbias_parts.append(torch.clamp_max(
@@ -659,15 +688,33 @@ def _precompute_rows_stacked(sys: System, kin: KinB, v_b: List[Arr],
     vn_st = torch.cat(vn_parts)                     # [C, N]
     vbias_st = torch.cat(vbias_parts)
     cap_st = torch.cat(cap_parts)
+    if ROW_LOG is not None:
+        acting = cap_st != 0.0
+        N = ref.shape[1]
+        ROW_LOG.append((acting[:Cc].sum(), Cc * N, acting[Cc:].sum(),
+                        Cl * N))
 
-    touched = sgn_np.any(axis=0)
-    x = ldl_solve(fac, [J_all[:, i] if touched[i] else None
-                        for i in range(nv)])
-    zc = torch.zeros_like(vn_st)
-    MinvJ_st = torch.stack([zc if xi is None else xi for xi in x], dim=1)
-    m_eff_st = 1.0 / (fold1(J_all * MinvJ_st) + f32(1e-8))
-    fnmax_st = m_eff_st * cap_st
+    MinvJ_st, m_eff_st, fnmax_st = _row_solve(fac, J_all, cap_st,
+                                              sgn_np.any(axis=0))
     return MinvJ_st, rows_st, m_eff_st, vn_st, vbias_st, fnmax_st
+
+
+def _gs_sweep(MinvJ_st: Arr, rows_st: Arr, m_eff_st: Arr, vn_st: Arr,
+              vbias_st: Arr, fnmax_st: Arr, rhs_a: Arr, h: float) -> Arr:
+    """``N_GS_PASSES`` projected Gauss–Seidel passes over every row: work
+    that a row whose cap is 0 does not need (its force stays 0)."""
+    inv_h = recip32(h)
+    fns = [torch.zeros_like(rhs_a[0]) for _ in range(len(vn_st))]
+    for _ in range(N_GS_PASSES):
+        for c in range(len(vn_st)):
+            jacc = fold(MinvJ_st[c] * rhs_a)
+            vn_pred = vn_st[c] + h * jacc
+            fn_new = torch.minimum(torch.clamp_min(
+                fns[c] + m_eff_st[c] * (vbias_st[c] - vn_pred) * inv_h, 0.0),
+                fnmax_st[c])
+            rhs_a = rhs_a + rows_st[c] * (fn_new - fns[c])
+            fns[c] = fn_new
+    return rhs_a
 
 
 def contact_qfrc_b(sys: System, kin: KinB, v_b: List[Arr],
@@ -679,24 +726,10 @@ def contact_qfrc_b(sys: System, kin: KinB, v_b: List[Arr],
     normal force moves toward the value that leaves its predicted normal
     velocity, under all forces in the running rhs, at the bounded Baumgarte
     pushout, projected to [0, m_eff·a_ref]."""
-    C = len(cons) + len(limits)
-    if C == 0:
+    if not cons and not limits:
         return list(rhs)
-    (MinvJ_st, rows_st, m_eff_st, vn_st, vbias_st,
-     fnmax_st) = _precompute_rows_stacked(sys, kin, v_b, cons, fac, h, qd,
-                                          limits)
-    inv_h = recip32(h)
-    rhs_a = torch.stack(rhs)
-    fns = [torch.zeros_like(rhs[0]) for _ in range(C)]
-    for _ in range(N_GS_PASSES):
-        for c in range(C):
-            jacc = fold(MinvJ_st[c] * rhs_a)
-            vn_pred = vn_st[c] + h * jacc
-            fn_new = torch.minimum(torch.clamp_min(
-                fns[c] + m_eff_st[c] * (vbias_st[c] - vn_pred) * inv_h, 0.0),
-                fnmax_st[c])
-            rhs_a = rhs_a + rows_st[c] * (fn_new - fns[c])
-            fns[c] = fn_new
+    rows = _precompute_rows_stacked(sys, kin, v_b, cons, fac, h, qd, limits)
+    rhs_a = _gs_sweep(*rows, torch.stack(rhs), h)
     return [rhs_a[i] for i in range(sys.nv)]
 
 

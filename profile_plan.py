@@ -25,10 +25,8 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
-from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -80,11 +78,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from mbd_tpu_torch import envs
     from mbd_tpu_torch.planners import mbd
+    from mbd_tpu_torch.utils import profiling
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    gpu = profiling.card()
     env = envs.get_env(args.env, device="cuda")
     # an env with a demo (humanoidtrack) plans with it
     cfg = mbd.recommended_config(args.env, mbd.MBDConfig(
@@ -109,30 +105,18 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         wall, final = run()
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = profiling.device_events(prof)
     if not kernels:
         raise RuntimeError("the trace holds no device time")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_lo, cur_hi = 0.0, *spans[0]
-    for lo, hi in spans[1:]:
-        if lo > cur_hi:
-            busy += cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-        else:
-            cur_hi = max(cur_hi, hi)
-    busy += cur_hi - cur_lo
-    per_name = defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        per_name[e.name][0] += 1
-        per_name[e.name][1] += e.time_range.elapsed_us()
+    busy = profiling.busy_us((e.time_range.start, e.time_range.end)
+                             for e in kernels)
+    per_name = profiling.kernel_totals(kernels)
 
     print(f"traced {args.env} {what} on {gpu}: wall {wall:.6f} s, final "
           f"{final:.6f}, device busy {busy / 1e6:.6f} s, busy share "
           f"{busy / 1e6 / wall:.6f}")
     if args.rl:
-        count, us = [sum(v[i] for k, v in per_name.items()
-                         if "rollout_kernel" in k) for i in (0, 1)]
+        count, us = profiling.named(per_name, "rollout_kernel")
         it = run.history
         per_iter = sum(h["train/wall_s"] for h in it) / sum(
             h["train/iterations"] for h in it)

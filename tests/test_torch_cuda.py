@@ -306,3 +306,17 @@ def test_mesh_nccl_world_of_one(card, tmp_path):
     assert mesh.collectives and mesh.device == torch.device("cuda:0")
     for k in R.PLAN_FIELDS:
         assert torch.equal(out[k], single[k]), k
+
+
+@pytest.mark.cuda
+def test_bench_hopper_short(card):
+    """``python -m mbd_tpu_torch.bench --cell hopper --Ndiffuse 6
+    --Hsample 10``, checked by ``bench.short_run``: one line, the cell
+    correct with its parity, 6 launches (5 steps and the final
+    selection), the cuts in ``reduced``, the mfu and the kernel's roofline
+    share in (0, 1.05]."""
+    from mbd_tpu_torch import bench
+
+    line = bench.short_run(("hopper",), 6, 10)
+    assert line["cells"]["hopper"]["reduced"] == [
+        "Hsample 10 (published 50)", "Ndiffuse 6 (published 100)"]

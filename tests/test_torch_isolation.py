@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "mbd_tpu_torch.utils.profiling",
                    "mbd_tpu_torch.utils.launcher",
                    "mbd_tpu_torch.cli.vis_explainer",
-                   "mbd_tpu_torch.notebooks.demo_1d"):
+                   "mbd_tpu_torch.notebooks.demo_1d",
+                   "mbd_tpu_torch.bench", "mbd_tpu_torch.utils.work"):
         assert module in listed.split()
     assert loaded.split() == ["LOADED"], loaded
