@@ -33,7 +33,11 @@ Phases, each of which raises on failure (exit code 1):
    path's plan, the kernel is held against the plain version at the
    path's own shape, timed, from the plan's initial state, with the final
    plan as sample 0: so the plain version also rolls the final plan out
-   again, to the plan's reward (and demo log-density) within 1e-5:
+   again, to the plan's reward (and demo log-density) within 1e-5; at
+   humanoidrun's the plain version runs through ``replay.first_flags``,
+   whose flags must equal the kernel's, and its line prints the flagged
+   count by check and the tail share (the sample-substeps after each
+   sample's first flag):
    - hopper: ``envs.get_env("hopper", device="cuda")`` → ``mbd.plan`` at
      ``recommended_config("hopper")`` (2048 / 50 / 100), seed 0, to a
      clean final reward of at least 1.8, compared at N = 2048, H = 50;
@@ -228,10 +232,14 @@ class Case:
     """One comparison: inputs, and the plain version's outputs and time."""
 
     def __init__(self, torch, envs, name, N, H, gen, per_sample=False,
-                 need_qs=False, demo=False, timed=False, path=None):
+                 need_qs=False, demo=False, timed=False, path=None,
+                 flags=False):
         """``path``: (env, initial state, final plan [H, nu]) of a plan
         just driven; the comparison then starts from the plan's initial
-        state, with the final plan as sample 0."""
+        state, with the final plan as sample 0. ``flags``: the plain
+        version runs through ``replay.first_flags``, whose record
+        (``self.flags``) also gives each sample's first flagged substep."""
+        from mbd_tpu_torch.rollout import replay
         from mbd_tpu_torch.rollout.fused import rollout_outputs
         from mbd_tpu_torch.utils.work import acting_rows
 
@@ -264,9 +272,18 @@ class Case:
         if path is not None:
             self.Y0s[0] = plan
         # the plain version's outputs, and the constraint rows that acted
-        self.plain_ms, (self.plain, self.rows) = time_ms(
-            torch, lambda: acting_rows(rollout_outputs, env, state0,
-                                       self.Y0s, need_qs, demo), 1)
+        self.flags = None
+        if flags:
+            def plain():
+                rec = replay.first_flags(env, state0, self.Y0s, trace=True)
+                return (rec.rews, rec.bad), rec
+
+            self.plain_ms, ((self.plain, self.flags), self.rows) = time_ms(
+                torch, lambda: acting_rows(plain), 1)
+        else:
+            self.plain_ms, (self.plain, self.rows) = time_ms(
+                torch, lambda: acting_rows(rollout_outputs, env, state0,
+                                           self.Y0s, need_qs, demo), 1)
 
     def modes(self):
         return ["base"] + ["need_qs"] * self.need_qs + ["demo"] * self.demo
@@ -333,8 +350,16 @@ class Case:
         bound_ms, bound_by = self.bound()
         shown = ", ".join(f"max|Δ{k}| {v:.3g}" for k, v in errs.items())
         r = self.rows
+        tail = ""
+        if self.flags is not None:
+            from mbd_tpu_torch.rollout.replay import summary
+
+            s = summary(self.flags)
+            tail = (f" ({s['by_check']['qd']} by |qd|, "
+                    f"{s['by_check']['root']} by the root; tail share "
+                    f"{s['tail_share']:.4f})")
         print(f"check {self.label()}: {shown} (atol {ATOL:g}), flags equal, "
-              f"{int(out[1].sum())} flagged; kernel {ms:.3f} ms, plain "
+              f"{int(out[1].sum())} flagged{tail}; kernel {ms:.3f} ms, plain "
               f"{self.plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; rows acting: {r.contacts_acting} of "
               f"{r.contacts} contact, {r.limits_acting} of {r.limits} "
@@ -1551,7 +1576,7 @@ def main() -> int:
                    dict(min_reward=MIN_HOPPER_REWARD), dict(N=2048, H=50)),
         "humanoidrun": (mbd.recommended_config("humanoidrun"),
                         dict(min_reward=MIN_HUMANOIDRUN_REWARD),
-                        dict(N=8192, H=50)),
+                        dict(N=8192, H=50, flags=True)),
         "humanoidtrack": (mbd.recommended_config(
             "humanoidtrack", mbd.MBDConfig(enable_demo=True)),
             dict(min_logpd=MIN_HUMANOIDTRACK_LOGPD),

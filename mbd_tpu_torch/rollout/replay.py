@@ -21,6 +21,7 @@ import torch
 from ..envs.physics import PhysicsEnv
 from ..ops.rollout_cuda import rollout_rewards_cuda
 from ..sim import batched as BT
+from .fused import initial_states, rollout_outputs
 from .rollout import rollout_us
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -74,6 +75,11 @@ EDGE = {("humanoidrun", 1): {"cpu": 1.791351, "cuda": 6.170166},
         ("humanoidrun", 7): {"cuda": 5.681023}}
 EDGE_STATES = os.path.join(ROOT, "mbd_tpu_torch", "assets",
                            "humanoidrun_edge.npz")
+# The card's flagged and clean humanoid states on the last step of the
+# bench's humanoid cells, and one substep's margins from each
+# (``tests/torch_flag_check.py --card``).
+FLAG_STATES = os.path.join(ROOT, "mbd_tpu_torch", "assets",
+                           "humanoid_flags.npz")
 
 
 def misses(directory: str, rews, bad, ref) -> set:
@@ -178,49 +184,149 @@ def spread(env, directory: str, copies: int = 32):
     return float(gaps.max(initial=0.0)), int((bad[1:] != bad[0]).sum())
 
 
+def first_flags(env, state0, Y0s: torch.Tensor, states: bool = False,
+                trace: bool = False) -> SimpleNamespace:
+    """Where the validity envelope first flags each of N samples: Y0s
+    [N, H, nu] rolled out from ``state0`` (q/qd shared or per sample)
+    through the plain engine one substep at a time on ``env.device``, each
+    check read after every substep in ``env_step_checked_b``'s order: the
+    substep, |qd| against ``QD_DIVERGED`` (``"qd"``), each root against
+    ``ROOT_SINK_TOL`` below the floor through ``height_sensors``
+    (``"root"``), the clamp. On the card the kernel gives the same bits.
+
+    Returns a namespace of [N] tensors on ``env.device``: ``first``, the
+    first flagged substep (env step · n_frames + substep; −1: clean);
+    ``root``, True where the root check tripped there and |qd| did not;
+    ``speed``, ``low`` and ``dof`` after that substep (the largest |qd|,
+    the lowest root, +inf without a floor, and the dof of the largest
+    speed); the closest approach up to the first flag (a clean sample's
+    whole run): ``peak`` and ``peak_dof`` at ``peak_at``, the substep of
+    the largest |qd|, and ``lowest`` at ``lowest_at``, that of the lowest
+    root; ``bad``, the flags as the kernel gives them; and ``H``,
+    ``n_frames``, ``zmin`` (the roots' limit, None without a floor). With
+    ``states``, ``pre``: for "flag", "peak" and "lowest", the state before
+    that substep, (q [nq, N], qd [nv, N], u [nu, N]). With ``trace``,
+    ``rews`` [N, H], ``rollout_outputs``' rewards."""
+    sys, nf = env.sys, env.n_frames
+    N, H = Y0s.shape[:2]
+    U = Y0s.permute(1, 2, 0).contiguous()                # [H, nu, N]
+    q0, qd0 = initial_states(sys, state0, N)
+    hs = sys.cached("height_sensors", lambda: BT.height_sensors(sys))
+    zmin = None if hs is None else BT.f32(hs[1] - BT.ROOT_SINK_TOL)
+    inf = torch.full((N,), float("inf"), dtype=q0.dtype, device=q0.device)
+    never = torch.full((N,), -1, dtype=torch.long, device=q0.device)
+    r = SimpleNamespace(first=never, root=never >= 0, speed=-inf, low=inf,
+                        dof=never, peak=-inf, peak_at=never, peak_dof=never,
+                        lowest=inf, lowest_at=never, H=H, n_frames=nf,
+                        zmin=zmin)
+    if states:
+        r.pre = dict.fromkeys(("flag", "peak", "lowest"), (
+            torch.zeros_like(q0), torch.zeros_like(qd0),
+            torch.zeros_like(U[0])))
+    q, qd, qs, qds = q0, qd0, [], []
+    for t in range(H):
+        u = U[t]
+        for f in range(nf):
+            pre = (q, qd, u)
+            q, qd = BT.substep_b(sys, q, qd, u)
+            speed, dof = qd.abs().max(dim=0)
+            fast = speed > BT.QD_DIVERGED
+            tripped, low = fast, inf
+            if hs is not None:
+                for qadr, off in hs[0]:
+                    z = q[qadr] + BT.f32(off)
+                    tripped = tripped | (z < zmin)
+                    low = torch.minimum(low, z)
+            live = r.first < 0
+            k = t * nf + f
+            for name, mask, fields in (
+                    ("flag", live & tripped, dict(
+                        first=k, root=~fast, speed=speed, low=low,
+                        dof=dof)),
+                    ("peak", live & (speed > r.peak), dict(
+                        peak=speed, peak_at=k, peak_dof=dof)),
+                    ("lowest", live & (low < r.lowest), dict(
+                        lowest=low, lowest_at=k))):
+                for field, v in fields.items():
+                    setattr(r, field, torch.where(mask, v,
+                                                  getattr(r, field)))
+                if states:
+                    r.pre[name] = tuple(torch.where(mask, a, b) for a, b
+                                        in zip(pre, r.pre[name]))
+            qd = torch.clamp(qd, -BT.QD_DIVERGED, BT.QD_DIVERGED)
+        if trace:
+            qs.append(q)
+            qds.append(qd)
+    r.bad = (r.first >= 0).to(q0.dtype)
+    if trace:
+        r.rews = env.reward_qs_b(torch.stack(qs), torch.stack(qds), U, q0,
+                                 qd0).transpose(0, 1)
+    return r
+
+
+def margins(zmin, speed, low):
+    """Each check's margin in float64 on the host (positive = tripped):
+    the largest |qd| less ``QD_DIVERGED``, and the roots' limit ``zmin``
+    less the lowest root (−inf without a floor, ``zmin`` None)."""
+    speed = np.asarray(torch.as_tensor(speed).cpu(), np.float64)
+    low = np.asarray(torch.as_tensor(low).cpu(), np.float64)
+    if zmin is None:
+        return speed - BT.QD_DIVERGED, np.full_like(low, -np.inf)
+    return speed - BT.QD_DIVERGED, zmin - low
+
+
+def summary(rec) -> dict:
+    """``first_flags``' counts: samples, flagged, flagged by check,
+    ``first_steps`` (the flagged samples by the env step of their first
+    flag) and ``tail_share`` (the sample-substeps after each sample's
+    first flagged substep, over N · H · n_frames)."""
+    first = rec.first.cpu().numpy()
+    root = rec.root.cpu().numpy()
+    hit = first >= 0
+    steps = rec.H * rec.n_frames
+    return dict(samples=len(first), flagged=int(hit.sum()),
+                by_check={"qd": int((hit & ~root).sum()),
+                          "root": int((hit & root).sum())},
+                first_steps=np.bincount(first[hit] // rec.n_frames,
+                                        minlength=rec.H).tolist(),
+                tail_share=float((steps - 1 - first[hit]).sum()
+                                 / (len(first) * steps)))
+
+
+def flag_of(rec, n: int):
+    """Sample ``n`` of a ``first_flags`` record taken with ``states``:
+    None when clean, else a dict of the env step and substep of its first
+    flag, the check that tripped, both margins there (``margins``), the
+    dof of the largest speed and the state before that substep (q, qd,
+    the control u) on the host."""
+    k = int(rec.first[n])
+    if k < 0:
+        return None
+    qd_margin, root_margin = margins(rec.zmin, rec.speed[n], rec.low[n])
+    q, qd, u = (a[:, n].cpu().numpy() for a in rec.pre["flag"])
+    return dict(step=k // rec.n_frames, substep=k % rec.n_frames,
+                check="root" if bool(rec.root[n]) else "qd",
+                qd_margin=float(qd_margin), root_margin=float(root_margin),
+                dof=int(rec.dof[n]), q=q, qd=qd, u=u)
+
+
+def seed_plan(env, directory: str, seed: int):
+    """Seed ``seed``'s reset and committed plan of ``results/<directory>``
+    as a batch of 1 on ``env.device``: (state, plan [1, H, nu])."""
+    ps = seed_states(env, HARNESS[directory]).pipeline_state
+    one = SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=ps.q[:, seed:seed + 1].contiguous(),
+        qd=ps.qd[:, seed:seed + 1].contiguous()))
+    plan = harness(directory)["plans"][seed:seed + 1]
+    return one, torch.from_numpy(plan).to(env.device)
+
+
 def first_flag(env, directory: str, seed: int):
     """Where the validity envelope first flags seed ``seed``'s committed
-    plan of ``results/<directory>``: the plan rolled out from its reset
-    one substep at a time through the plain engine (a batch of 1, on
-    ``env.device``; on the card the kernel gives the same bits), each
-    check read after every substep as ``env_step_checked_b`` reads it.
-    Returns None when the rollout stays clean, else a dict: the env step
-    and substep, the check that tripped (``"qd"``: a joint speed above
-    ``QD_DIVERGED``; ``"root"``: a root more than ``ROOT_SINK_TOL`` below
-    the floor), each check's margin there (positive = tripped: max |qd| −
-    the limit, and the limit's height − the lowest root), the dof of the
-    largest speed, and the state before that substep (q, qd, the control
-    u) on the host."""
-    sys = env.sys
-    ref = harness(directory)
-    state = seed_states(env, HARNESS[directory]).pipeline_state
-    q = state.q[:, seed:seed + 1]
-    qd = state.qd[:, seed:seed + 1]
-    U = torch.from_numpy(ref["plans"][seed]).to(env.device)
-    hs = BT.height_sensors(sys)
-    for t in range(U.shape[0]):
-        u = U[t][:, None]
-        for f in range(env.n_frames):
-            q_pre, qd_pre = q, qd
-            q, qd = BT.substep_b(sys, q, qd, u)
-            speed = qd.abs().amax(dim=0)[0]
-            qd_margin = float(speed) - BT.QD_DIVERGED
-            root_margin = -float("inf")
-            if hs is not None:
-                sensors, floor_z = hs
-                zmin = BT.f32(floor_z - BT.ROOT_SINK_TOL)
-                root_margin = max(zmin - float(q[qadr, 0] + BT.f32(off))
-                                  for qadr, off in sensors)
-            if qd_margin > 0 or root_margin > 0:
-                return dict(step=t, substep=f,
-                            check="qd" if qd_margin > 0 else "root",
-                            qd_margin=qd_margin, root_margin=root_margin,
-                            dof=int(qd.abs()[:, 0].argmax()),
-                            q=q_pre[:, 0].cpu().numpy(),
-                            qd=qd_pre[:, 0].cpu().numpy(),
-                            u=u[:, 0].cpu().numpy())
-            qd = torch.clamp(qd, -BT.QD_DIVERGED, BT.QD_DIVERGED)
-    return None
+    plan of ``results/<directory>``, rolled out from its reset:
+    ``first_flags`` at a batch of 1, as ``flag_of`` gives it."""
+    return flag_of(first_flags(env, *seed_plan(env, directory, seed),
+                               states=True), 0)
 
 
 def main(argv=None) -> int:
@@ -234,7 +340,6 @@ def main(argv=None) -> int:
     import argparse
 
     from .. import envs
-    from .fused import rollout_outputs
 
     p = argparse.ArgumentParser()
     p.add_argument("--first_flag", required=True,
@@ -247,13 +352,7 @@ def main(argv=None) -> int:
     arrays = {}
     for seed in map(int, seeds.split(",")):
         if env.device.type == "cuda":
-            ref = harness(directory)
-            state = seed_states(env, HARNESS[directory]).pipeline_state
-            one = SimpleNamespace(pipeline_state=SimpleNamespace(
-                q=state.q[:, seed:seed + 1].contiguous(),
-                qd=state.qd[:, seed:seed + 1].contiguous()))
-            plan = torch.from_numpy(ref["plans"][seed:seed + 1]).to(
-                env.device)
+            one, plan = seed_plan(env, directory, seed)
             kernel = rollout_rewards_cuda(env, one, plan, need_qs=True)
             plain = rollout_outputs(env, one, plan, need_qs=True)
             same = all(bool(torch.equal(a, b))
