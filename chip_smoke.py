@@ -127,7 +127,10 @@ Phases, each of which raises on failure (exit code 1):
    parameters equal on both and within 1e-4 of this process's, each rank
    launching the kernel on its half of the samples only (hopper: 99
    launches of 1024 and the final selection's 50 or 49); then hopper's
-   plan with NCCL at world size 1, bit for bit;
+   plan with NCCL at world size 1, bit for bit; then, only on a machine
+   with 2 cards or more, ``parallel.multichip``'s exact gather and its
+   cases ``dryrun`` and ``hopper_seeds8`` over up to 4 cards, one NCCL
+   rank a card, with its checks (on one card, a line saying so);
 10. MNIST weight diffusion (``blackbox/mnist.py``) at the published config
    (Nsample 256, Ndiffuse 500), seeds 0–5: the mean final test accuracy
    within the two-sample bound of JAX's over the same seeds
@@ -1215,6 +1218,9 @@ def drive_rl_eval(torch, gpu):
 # NCCL at world size 1. PPO on pushT at its reference config for 2
 # iterations and one eval.
 MESH_RANKS = 2
+# on a machine with several cards: multichip's cases over up to 4 of them
+MULTICHIP_CARDS = 4
+MULTICHIP_CASES = ("dryrun", "hopper_seeds8")
 PPO_MESH_TIMESTEPS = 2 * 2048 * 20
 # a sharded PPO against one process: JAX's meshed bound
 # (tests/test_rl_mesh.py); the planners must agree bit for bit
@@ -1334,7 +1340,9 @@ def drive_mesh(torch, gpu):
     within PPO_MESH_TOL of this process's; each rank launches the kernel
     on its shard only (hopper: 99 launches of 1024 samples and one of
     the final selection's 50 or 49). Then hopper's plan again with NCCL
-    at world size 1, equal to this process's."""
+    at world size 1, equal to this process's. Then, with 2 cards or
+    more, ``multichip.run`` of MULTICHIP_CASES over up to MULTICHIP_CARDS
+    of them."""
     import shutil
     import tempfile
 
@@ -1412,6 +1420,23 @@ def drive_mesh(torch, gpu):
     if not nccl_ok:
         raise AssertionError("mesh: the NCCL plan differs")
     report["nccl_exact"] = nccl_ok
+    # across cards, one NCCL rank a card, where the machine has several
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"mesh across cards: not run, the machine has {count} card "
+              f"(the cross-card cases need at least 2)", flush=True)
+        return report
+    from mbd_tpu_torch.parallel import multichip
+
+    cross = multichip.run(min(MULTICHIP_CARDS, count), MULTICHIP_CASES,
+                          repeat=1, nccl_algos=())
+    if not cross["ok"]:
+        raise AssertionError("mesh across cards: a check failed")
+    # by card count: the wall, and whether every rank equalled one card
+    report["multichip"] = {name: {k: dict(exact=row.get("exact"),
+                                          wall_s=row["wall_s"])
+                                  for k, row in by_cards.items()}
+                           for name, by_cards in cross["cases"].items()}
     return report
 
 

@@ -309,6 +309,29 @@ def test_mesh_nccl_world_of_one(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_multichip_dryrun_and_exact_gather(card):
+    """``parallel.multichip``'s case ``dryrun`` (one reverse step of
+    humanoidrun at 8192 × 50) and its exact gather over min(4, count)
+    cards, one NCCL rank a card: the gather bit for bit at every shape
+    the plans gather, NaN, ±inf, ±0.0 and subnormals included; the step
+    bit for bit with one card on every rank, each rank launching once on
+    its own card at its share of the 8192 samples."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs at least 2 CUDA cards, the machine has {count}")
+    from mbd_tpu_torch.parallel import multichip
+
+    K = min(4, count)
+    report = multichip.run(K, ["dryrun"], repeat=1, nccl_algos=())
+    assert all(c["ok"] for c in report["exact"][str(K)])
+    row = report["cases"]["dryrun"][str(K)]
+    assert row["ok"], row["checks"]
+    assert row["exact"] and row["launches"] == [1] * K
+    assert row["samples_per_launch"] == [[8192 // K]] * K
+    assert report["ok"]
+
+
+@pytest.mark.cuda
 def test_bench_hopper_short(card):
     """``python -m mbd_tpu_torch.bench --cell hopper --Ndiffuse 6
     --Hsample 10``, checked by ``bench.short_run``: one line, the cell

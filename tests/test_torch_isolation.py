@@ -39,6 +39,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "mbd_tpu_torch.rl.ppo", "mbd_tpu_torch.rl.sac",
                    "mbd_tpu_torch.rl.train", "mbd_tpu_torch.parallel",
                    "mbd_tpu_torch.parallel.mesh",
+                   "mbd_tpu_torch.parallel.multichip",
                    "mbd_tpu_torch.blackbox.mnist",
                    "mbd_tpu_torch.utils.profiling",
                    "mbd_tpu_torch.utils.launcher",

@@ -155,3 +155,60 @@ def card_plan(mesh):
     out = {k: v.cpu() for k, v in _fields(res).items()}
     out["launches"] = torch.tensor(rollout_cuda.LAUNCHES - launches)
     return out
+
+
+# test_torch_multichip.py: four ranks; the final selection of 49 plans,
+# split 13/12/12/12, at a horizon of 2
+FOUR = 4
+FINAL_T, FINAL_H = 49, 2
+EXACT_SHAPES = ((49, 12), (16, 11), (64, 18))
+
+
+def jax_state(env, jax_inputs):
+    """The port's State from JAX's reset (q, qd of ``jax_inputs``)."""
+    ps = env.pipeline_init(jax_inputs["q"], jax_inputs["qd"])
+    return State(ps, env._obs(ps), torch.zeros(()), torch.zeros(()))
+
+
+def final_split(mesh):
+    """``mbd.evaluate_final`` of FINAL_T random hopper plans from the
+    seed-0 reset, each of them rolled out once: the chosen reward, flag
+    and plan, and this rank's rows and sample-steps."""
+    from mbd_tpu_torch.ops import rollout_cuda
+
+    env = envs.get_env("hopper", device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    state = env.reset(gen)
+    plans = 0.5 * torch.randn((1, FINAL_T, FINAL_H, env.action_size),
+                              generator=gen)
+    steps = rollout_cuda.SAMPLE_STEPS
+    reward, diverged = mbd.evaluate_final(env, [state], plans, mesh)
+    return dict(final_reward=reward, final_diverged=diverged,
+                plan=plans[:, -1].clone(),
+                rows=torch.tensor(mesh.split(FINAL_T) if mesh is not None
+                                  else (0, FINAL_T)),
+                sample_steps=torch.tensor(rollout_cuda.SAMPLE_STEPS - steps))
+
+
+def multichip_cases(mesh, jax_inputs):
+    """``parallel.multichip`` on the CPU at ``JAX_CFG`` (``mesh``: a rank
+    of four; ``None``: one process): the exact gather at
+    ``EXACT_SHAPES`` (a rank only), one reverse step (``jax_inputs``'
+    ``step_eps``) and the plan (``eps``), both from JAX's reset, measured
+    as on the cards; then ``final_split``."""
+    from mbd_tpu_torch.parallel import multichip as M
+
+    hopper = envs.get_env("hopper", device="cpu")
+    state = jax_state(hopper, jax_inputs)
+    cfg = mbd.MBDConfig(**JAX_CFG)
+    cpu = torch.device("cpu")
+    out = {}
+    if mesh is not None:
+        out["exact"] = M.exact_gather(mesh, EXACT_SHAPES)
+        out["shard"] = mesh.shard(cfg.Nsample)
+    out["step"] = M.measure(M.Case("hopper", "step", cfg), cpu, mesh, 1,
+                            state_init=state, eps=jax_inputs["step_eps"])
+    out["plan"] = M.measure(M.Case("hopper", "plan", cfg), cpu, mesh, 1,
+                            state_init=state, eps=jax_inputs["eps"])
+    out["final"] = final_split(mesh)
+    return out
