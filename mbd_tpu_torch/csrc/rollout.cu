@@ -12,7 +12,9 @@
 // the last step, qd_out[nv, N]: at H = 1 with the trace, one env step
 // from a per-sample state, (q', qd'), which RL training steps through
 // (mbd_tpu_torch/rl/batched_env.py; JAX takes that step with XLA outside
-// Pallas, mbd_tpu/rl/batched_env.py:83-86).
+// Pallas, mbd_tpu/rl/batched_env.py:83-86). Where the caller passes a
+// buffer first[N], the launch also writes each sample's first flagged env
+// step into it (the recorder's tail count, utils/profiling.py).
 //
 // What bounds it on this card: latency, not bytes. A substep of one sample
 // is a few thousand dependent float operations (tens of thousands on the
@@ -1028,7 +1030,11 @@ __device__ void track_cost(Work& s, const float* xref_t, float& acc) {
 // against xref [H_demo, NTRACK, 3]) and qd_out [NV, N] (the velocities
 // after the last step, clamped as every substep clamps them: with qs at
 // H = 1, the state-out mode, one env step of RL training) are written
-// only when their pointers are not null.
+// only when their pointers are not null, and so is first_out [N], the env
+// step at whose end the sample's flag first rose (−1: never). That step is
+// carried in the flag itself so that it holds no register of its own: the
+// flag is 0 or 1 (every check gives one of them), and at the end of env
+// step t a flag of 1 becomes t + 2, which the checks' max leaves as it is.
 template <int G>
 __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                bool live,
@@ -1040,7 +1046,8 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                float* __restrict__ qs,
                                const float* __restrict__ xref,
                                float* __restrict__ logpd,
-                               float* __restrict__ qd_out, int N, int H) {
+                               float* __restrict__ qd_out,
+                               int* __restrict__ first_out, int N, int H) {
   float bad = 0.0f, acc = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
   if (g.lane == 0) {
 #pragma unroll
@@ -1083,6 +1090,7 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
       }
     }
     if (g.lane != 0) continue;
+    if (bad == 1.0f) bad = static_cast<float>(t + 2);
     const float* q = s.q;
     const float* qd = s.qd;
     const float* u = s.u;
@@ -1131,7 +1139,9 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
 #endif
   }
   if (g.lane != 0 || !live) return;
-  bad_out[n] = bad;
+  bad_out[n] = bad != 0.0f ? 1.0f : 0.0f;
+  if (first_out != nullptr)
+    first_out[n] = bad != 0.0f ? static_cast<int>(bad) - 2 : -1;
   if (qd_out != nullptr) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) qd_out[i * N + n] = s.qd[i];
@@ -1158,7 +1168,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    float* __restrict__ rews, float* __restrict__ bad_out,
                    float* __restrict__ qs, const float* __restrict__ xref,
                    float* __restrict__ logpd, float* __restrict__ qd_out,
-                   int N, int H) {
+                   int* __restrict__ first_out, int N, int H) {
   extern __shared__ float smem[];
   // the model's run-time tables into shared memory
   for (int i = threadIdx.x; i < static_cast<int>(sizeof(Tables) / 4);
@@ -1173,7 +1183,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Group<kG> g{lane, static_cast<int>(threadIdx.x % 32) - lane};
   rollout_sample<kG>(g, reinterpret_cast<Slice*>(smem)[grp],
                      n < N ? n : N - 1, n < N, q0, qd0, per_sample, U, rews,
-                     bad_out, qs, xref, logpd, qd_out, N, H);
+                     bad_out, qs, xref, logpd, qd_out, first_out, N, H);
 }
 
 // Once per device: the opt-in to dynamic shared memory above 48 KB, and
@@ -1217,17 +1227,18 @@ cudaError_t prepare() {
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). qs, xref,
-// logpd and qd_out may be null (see rollout_sample).
+// logpd, qd_out and first may be null (see rollout_sample).
 int mbd_rollout(const float* q0, const float* qd0, int per_sample,
                 const float* U, float* rews, float* bad, float* qs,
-                const float* xref, float* logpd, float* qd_out, int N, int H,
-                void* stream) {
+                const float* xref, float* logpd, float* qd_out, int* first,
+                int N, int H, void* stream) {
   cudaError_t e = prepare();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + kThreads / kG - 1) / (kThreads / kG)), block(kThreads);
   rollout_kernel<<<grid, block, kSharedBytes,
                    static_cast<cudaStream_t>(stream)>>>(
-      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, N, H);
+      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, first, N,
+      H);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,7 @@ from ..sim.contact import BAUMGARTE_BETA, N_GS_PASSES, V_PUSH_MAX
 from ..sim.system import (FREE, HINGE, PAIR_CAPSULE_CAPSULE,
                           PAIR_PLANE_CAPSULE, PAIR_PLANE_SPHERE,
                           PAIR_SPHERE_BOX, SLIDE, System)
+from ..utils import profiling
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -420,8 +421,8 @@ class Built:
         lib.mbd_rollout.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
         lib.mbd_rollout_attrs.argtypes = [ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)]
@@ -438,11 +439,13 @@ class Built:
         return dict(zip(LAYOUT, out))
 
     def run(self, env, state0, Y0s: torch.Tensor, need_qs: bool = False,
-            demo: bool = False, state_out: bool = False
-            ) -> Tuple[torch.Tensor, ...]:
+            demo: bool = False, state_out: bool = False,
+            first: bool = False) -> Tuple[torch.Tensor, ...]:
         """One launch on CUDA tensors whose shapes ``rollout_rewards_cuda``
-        has checked; its outputs in that function's layout, and with
-        ``state_out`` the velocities after the last step [nv, N] last."""
+        has checked; its outputs in that function's layout, with
+        ``state_out`` the velocities after the last step [nv, N] and with
+        ``first`` each sample's first flagged env step [N] (int32, −1 where
+        none) last."""
         N, H, _ = Y0s.shape
         q0 = state0.pipeline_state.q.contiguous()
         qd0 = state0.pipeline_state.qd.contiguous()
@@ -453,6 +456,8 @@ class Built:
         qs = torch.empty((H, env.sys.nq, N), **f32) if need_qs else None
         logpd = torch.empty((N,), **f32) if demo else None
         qd_out = torch.empty((env.sys.nv, N), **f32) if state_out else None
+        first_out = torch.empty((N,), dtype=torch.int32, device=Y0s.device) \
+            if first else None
         xref = env.xref_frames if demo else None       # [H_demo, 5, 3]
 
         def ptr(t):
@@ -463,7 +468,8 @@ class Built:
             err = self.lib.mbd_rollout(
                 q0.data_ptr(), qd0.data_ptr(), int(q0.dim() == 2),
                 U.data_ptr(), rews.data_ptr(), bad.data_ptr(), ptr(qs),
-                ptr(xref), ptr(logpd), ptr(qd_out), N, H, stream)
+                ptr(xref), ptr(logpd), ptr(qd_out), ptr(first_out), N, H,
+                stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA rollout kernel launch failed: error {err}")
@@ -474,6 +480,8 @@ class Built:
             out += (logpd,)
         if state_out:
             out += (qd_out,)
+        if first:
+            out += (first_out,)
         return out
 
 
@@ -553,7 +561,13 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     with ``demo``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. While the recorder counts (``utils/profiling.py``: under a
+    ``torch.profiler``, or ``recording(counters=True)``), the rollout
+    counts its N·H sample-steps (``rollout.sample_steps``) and, from each
+    sample's first flagged env step (the kernel's ``first`` buffer, or the
+    plain version's), the env steps after it: Σ over the flagged samples
+    of H − 1 − that step (``rollout.tail_sample_steps``), work no planner
+    reads. The launch is the same kernel either way."""
     global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES, SAMPLE_STEPS, \
         DEMO_SAMPLE_STEPS
     sys = env.sys
@@ -561,10 +575,12 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     N, H, nu = Y0s.shape
     if demo:
         check_demo(env, H)
+    first = profiling.counting()
     if not Y0s.is_cuda:
         SAMPLE_STEPS += N * H
         DEMO_SAMPLE_STEPS += N * H * int(demo)
-        return rollout_outputs(env, state0, Y0s, need_qs, demo)
+        out = rollout_outputs(env, state0, Y0s, need_qs, demo, first)
+        return _counted(out, N, H) if first else out
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
     if Y0s.dtype != torch.float32:
@@ -584,13 +600,25 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
     if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
-    out = library(env).run(env, state0, Y0s, need_qs, demo)
+    out = library(env).run(env, state0, Y0s, need_qs, demo, first=first)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
     SAMPLE_STEPS += N * H
     DEMO_SAMPLE_STEPS += N * H * int(demo)
-    return out
+    return _counted(out, N, H) if first else out
+
+
+def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int
+             ) -> Tuple[torch.Tensor, ...]:
+    """Counts a rollout's sample-steps and its samples' env steps after
+    their first flag (the last of ``out``, −1 where none) with the
+    recorder, on the device; the outputs without the first flags."""
+    first = out[-1]
+    profiling.count("rollout.sample_steps", N * H)
+    profiling.count("rollout.tail_sample_steps", torch.where(
+        first >= 0, (H - 1) - first, 0).sum())
+    return out[:-1]
 
 
 def library(env) -> Built:

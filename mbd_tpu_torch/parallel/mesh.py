@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve
+from ..utils import profiling
 
 
 @dataclass
@@ -81,12 +82,16 @@ class SampleMesh:
 
     def gather(self, local: torch.Tensor, n: int, lo: int) -> torch.Tensor:
         """The full [n, ...] tensor of which this rank holds rows
-        [lo, lo + len(local)): an exact all_reduce(SUM) over −0.0."""
+        [lo, lo + len(local)): an exact all_reduce(SUM) over −0.0. The
+        all_reduce is the span ``mesh.gather`` (with its bytes), timed on
+        a card by CUDA events, its wait for the other ranks included."""
         full = torch.full((n,) + tuple(local.shape[1:]), -0.0,
                           dtype=local.dtype, device=local.device)
         full[lo:lo + local.shape[0]] = local
         self.collectives.append(("all_reduce", full.numel()))
-        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=self.group)
+        with profiling.span("mesh.gather", device=full.is_cuda,
+                            bytes=full.numel() * full.element_size()):
+            dist.all_reduce(full, op=dist.ReduceOp.SUM, group=self.group)
         return full
 
     def barrier(self) -> None:
@@ -139,14 +144,16 @@ def sample_mesh(group=None, device=None) -> SampleMesh:
 def _rank_main(rank: int, fn: Callable, size: int, backend: str, device,
                workdir: str, args: tuple) -> None:
     """One spawned rank: joins the group through the file store in
-    ``workdir``, runs ``fn(mesh, *args)`` and saves what it returns."""
+    ``workdir``, runs ``fn(mesh, *args)`` and saves what it returns, and
+    beside it what the rank's recorder holds."""
     torch.set_num_threads(1)
     dist.init_process_group(
         backend, init_method="file://" + os.path.join(workdir, "store"),
         rank=rank, world_size=size)
     try:
         out = fn(sample_mesh(device=device), *args)
-        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        torch.save((out, profiling.recorded()),
+                   os.path.join(workdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -161,14 +168,20 @@ class Ranks:
 
     def wait(self) -> list:
         """Each rank's return value, in rank order, once all have ended
-        (on the CPU); raises if a rank failed."""
+        (on the CPU); raises if a rank failed. What each rank recorded
+        goes into this process's recorder, tagged by its rank."""
         try:
             while not self.context.join():
                 pass
             self.wall_s = time.perf_counter() - self.t0
-            return [torch.load(os.path.join(self.workdir, f"rank{r}.pt"),
-                               map_location="cpu", weights_only=False)
-                    for r in range(self.size)]
+            outs = []
+            for r in range(self.size):
+                out, rec = torch.load(
+                    os.path.join(self.workdir, f"rank{r}.pt"),
+                    map_location="cpu", weights_only=False)
+                profiling.merge(rec, r)
+                outs.append(out)
+            return outs
         finally:
             shutil.rmtree(self.workdir, ignore_errors=True)
 

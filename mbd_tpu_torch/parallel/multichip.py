@@ -36,8 +36,9 @@ the rank's own card at the rank's share of the samples (``SampleMesh``'s
 split of one process's launch), the plan's wall (median of ``REPEAT``
 runs, each started after a barrier and ended in a synchronise), the
 kernel's ms a launch and each rank's busy share from a ``torch.profiler``
-trace of one more run, the gathers (CUDA events around
-``SampleMesh.gather``: ms, bytes and count a plan) and the host seconds
+trace of one more run, the gathers (the ``mesh.gather`` spans of the
+recorder, ``utils/profiling.py``, timed by their CUDA events: ms, bytes and
+count a plan) and the host seconds
 (wall less busy time, one CPU thread a rank). Each spawn logs NCCL at
 ``NCCL_DEBUG=INFO`` and prints the lines that name a transport. First of
 all, before any build, the exact gather runs alone on K cards under
@@ -68,7 +69,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -211,30 +212,6 @@ CASES = ("dryrun", "humanoidrun", "hopper_seeds8", "humanoidtrack_demo",
 # what a rank records
 # ---------------------------------------------------------------------------
 
-@dataclass
-class TimedMesh(SampleMesh):
-    """A ``SampleMesh`` that logs each gather's bytes and, on a card, its
-    CUDA events (``gathers``: events or None, bytes), for the
-    measurement only."""
-    gathers: List[Tuple[Any, int]] = field(default_factory=list)
-
-    @classmethod
-    def of(cls, mesh: SampleMesh) -> "TimedMesh":
-        return cls(**{f.name: getattr(mesh, f.name)
-                      for f in dataclasses.fields(SampleMesh)})
-
-    def gather(self, local: torch.Tensor, n: int, lo: int) -> torch.Tensor:
-        events = None
-        if self.device.type == "cuda":
-            events = [torch.cuda.Event(enable_timing=True) for _ in "se"]
-            events[0].record()
-        full = super().gather(local, n, lo)
-        if events is not None:
-            events[1].record()
-        self.gathers.append((events, full.numel() * full.element_size()))
-        return full
-
-
 @contextlib.contextmanager
 def launch_log():
     """Every launch of the rollout kernel in the block, as (the index of
@@ -264,34 +241,38 @@ def _counts() -> dict:
                 sample_steps=rc.SAMPLE_STEPS)
 
 
-def timed_run(case: Case, env, mesh: Optional[TimedMesh], log: list,
+def timed_run(case: Case, env, mesh: Optional[SampleMesh], log: list,
               **inputs) -> dict:
     """One run of the case with the counts set to 0 just before and read
     just after: its result, wall (from a barrier and a synchronise to a
-    synchronise), counts, launches (card, N), collectives and gathers."""
+    synchronise), counts, launches (card, N), collectives and the gathers
+    (the run's ``mesh.gather`` spans, recorded for it; the recorder keeps
+    no counter there, so the run does no counting work)."""
     device = env.device
     if mesh is not None:
         mesh.barrier()
         mesh.collectives.clear()
-        mesh.gathers.clear()
     _sync(device)
     rc.LAUNCHES = rc.DEMO_LAUNCHES = rc.STATE_LAUNCHES = 0
     rc.SAMPLE_STEPS = rc.DEMO_SAMPLE_STEPS = 0
     log.clear()
-    t0 = time.perf_counter()
-    result = case.run(env, mesh, **inputs)
-    _sync(device)
-    wall = time.perf_counter() - t0
+    profiling.clear()
+    with profiling.recording():
+        t0 = time.perf_counter()
+        result = case.run(env, mesh, **inputs)
+        _sync(device)
+        wall = time.perf_counter() - t0
     out = dict(result=result, wall_s=wall, launch_cards=sorted(
         {c for c, _ in log if c is not None}),
         launch_samples=[n for _, n in log], **_counts())
     if mesh is not None:
+        gathers = [s for s in profiling.recorded().spans
+                   if s.name == "mesh.gather"]
         out.update(collectives=len(mesh.collectives),
-                   gathers=len(mesh.gathers),
-                   gather_bytes=sorted({b for _, b in mesh.gathers}),
-                   gather_ms=sum(ev[0].elapsed_time(ev[1]) for ev, _ in
-                                 mesh.gathers) if device.type == "cuda"
-                   else None)
+                   gathers=len(gathers),
+                   gather_bytes=sorted({s.attrs["bytes"] for s in gathers}),
+                   gather_ms=sum(s.device_ms for s in gathers)
+                   if device.type == "cuda" else None)
     return out
 
 
@@ -324,7 +305,6 @@ def measure(case: Case, device, mesh: Optional[SampleMesh],
     The result is the first run's; ``repeat_equal`` says whether every
     run gave it bit for bit."""
     env = envs.get_env(case.model, device=device)
-    mesh = None if mesh is None else TimedMesh.of(mesh)
     on_card = device.type == "cuda"
     with launch_log() as log:
         if on_card:

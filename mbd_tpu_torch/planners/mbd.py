@@ -49,6 +49,13 @@ equals the single-process plan bit for bit, and no collective is as
 large as Y0s. The final selection's S·(Ndiffuse − 1) rollouts are split
 over the ranks the same way.
 
+Spans (``utils/profiling.py``, recorded only while a ``torch.profiler``
+records or inside ``profiling.recording()``): ``mbd.plan`` over a whole
+plan, in it ``mbd.prologue`` (everything before the first reverse step),
+one ``mbd.step`` a reverse step, tiled by ``mbd.noise``, ``mbd.rollout``,
+``mbd.weigh`` (the per-seed statistics) and ``mbd.update``, and
+``mbd.final`` (the final selection).
+
 Every tensor lives on ``env.device`` and the loop never waits on the
 device until the final evaluation. Random numbers come from an explicit
 ``torch.Generator``: ``env.reset`` draws the initial state from it, then
@@ -70,6 +77,7 @@ from ..core.schedule import DiffusionSchedule, make_schedule
 from ..envs.physics import PhysicsEnv
 from ..ops.rollout_cuda import check_demo, library, rollout_rewards_cuda
 from ..rollout.rollout import eval_us, rollout_us
+from ..utils.profiling import span
 
 
 @dataclass
@@ -123,10 +131,11 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
                             ) -> Callable:
     """The reverse step of S = len(states_init) independent denoises as
     ``reverse_once(Ybar_i, i, eps) → (Ybar_{i−1}, mean reward)``, with
-    Ybar_i [S, H, nu], eps [S, Nsample, H, nu] the step's noise and the
-    mean reward [S]: the S·N samples go out in one rollout, each from its
-    own seed's reset state, and each seed's statistics are its own
-    (``per_seed``). With ``mesh``, this rank rolls out its shard of the
+    Ybar_i [S, H, nu], eps [S, Nsample, H, nu] the step's noise (or a
+    function that draws it, called inside the step's ``mbd.noise`` span)
+    and the mean reward [S]: the S·N samples go out in one rollout, each
+    from its own seed's reset state, and each seed's statistics are its
+    own (``per_seed``). With ``mesh``, this rank rolls out its shard of the
     S·N samples, which must divide evenly over the mesh."""
     if cfg.enable_demo and isinstance(env, PhysicsEnv):
         check_demo(env, cfg.Hsample)
@@ -145,21 +154,27 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
                               env.rew_xref, cfg.temp_sample)
         return barycenter(masked_softmax(logp0, valid), Y0s), rew_mean
 
-    def reverse_once(Ybar_i: torch.Tensor, i: int, eps: torch.Tensor):
-        abar = sched.alphas_bar[i]
-        Yi = Ybar_i * torch.sqrt(abar)
-        Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i[:, None], -1.0,
-                          1.0)
+    def reverse_once(Ybar_i: torch.Tensor, i: int, eps):
+        with span("mbd.noise"):
+            if callable(eps):
+                eps = eps()
+            abar = sched.alphas_bar[i]
+            Yi = Ybar_i * torch.sqrt(abar)
+            Y0s = torch.clamp(eps * sched.sigmas[i] + Ybar_i[:, None], -1.0,
+                              1.0)
         S, N = Y0s.shape[:2]
-        out = sharded_rollout(env, state0, Y0s.reshape(
-            (S * N,) + Y0s.shape[2:]), lo, hi, mesh, demo=cfg.enable_demo)
-        Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
-                             out[1].reshape(S, N), Y0s,
-                             *[o.reshape(S, N) for o in out[2:]])
-
-        score = (-Yi + torch.sqrt(abar) * Ybar) / (1.0 - abar)
-        Yim1 = (Yi + (1.0 - abar) * score) / torch.sqrt(sched.alphas[i])
-        return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rew
+        with span("mbd.rollout"):
+            out = sharded_rollout(env, state0, Y0s.reshape(
+                (S * N,) + Y0s.shape[2:]), lo, hi, mesh,
+                demo=cfg.enable_demo)
+        with span("mbd.weigh"):
+            Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
+                                 out[1].reshape(S, N), Y0s,
+                                 *[o.reshape(S, N) for o in out[2:]])
+        with span("mbd.update"):
+            score = (-Yi + torch.sqrt(abar) * Ybar) / (1.0 - abar)
+            Yim1 = (Yi + (1.0 - abar) * score) / torch.sqrt(sched.alphas[i])
+            return Yim1 / torch.sqrt(sched.alphas_bar[i - 1]), rew
 
     return reverse_once
 
@@ -468,6 +483,46 @@ def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
              mesh=None) -> MBDResult:
     """``plan_batch``; with ``checkpoint_path`` (one seed only, from
     ``plan``), the chunks are checkpointed and resumed (``Checkpoint``)."""
+    S = len(generators)
+    T = cfg.Ndiffuse - 1
+    with span("mbd.plan", plan=True, S=S, Nsample=cfg.Nsample, T=T):
+        with span("mbd.prologue"):
+            pro = _prologue(env, cfg, generators, states_init, chunk_size,
+                            eps, checkpoint_path, mesh)
+        Ybar, Ybars, rews_trace, ckpt = pro.Ybar, pro.Ybars, \
+            pro.rews_trace, pro.ckpt
+        for t, i in enumerate(range(cfg.Ndiffuse - 1, 0, -1)):
+            if t < pro.start:
+                continue
+            with span("mbd.step", t=t):
+                e = eps[t] if eps is not None else (
+                    lambda: draw_eps(generators, pro.shape, env.device))
+                Ybar, rew = pro.reverse_once(Ybar, i, e)
+                Ybars.append(Ybar)
+                rews_trace.append(rew)
+            if chunk_size > 0 and ((t + 1) % chunk_size == 0 or t + 1 == T):
+                if ckpt is not None:
+                    c = t - t % chunk_size             # the chunk's first
+                    ckpt.save(c, torch.stack(Ybars[c:])[:, 0],
+                              torch.stack(rews_trace[c:])[:, 0], Ybar[0],
+                              generators[0], chunk_size)
+                if progress_fn is not None:
+                    progress_fn(t + 1, float(rew.mean()))
+        with span("mbd.final"):
+            Ybars = torch.stack(Ybars, dim=1)                # [S, T, H, nu]
+            final_reward, final_diverged = evaluate_final(
+                env, pro.states_init, Ybars, mesh)
+    return MBDResult(Ybars=Ybars, rews_trace=torch.stack(rews_trace, dim=1),
+                     final_reward=final_reward,
+                     final_diverged=final_diverged)
+
+
+def _prologue(env, cfg: MBDConfig, generators, states_init, chunk_size,
+              eps, checkpoint_path, mesh) -> SimpleNamespace:
+    """What ``_denoise`` sets up before its first reverse step: the reset
+    states, the schedule and the reverse step, the first iterate and, with
+    a checkpoint, the step to resume at and the iterates and rewards so
+    far."""
     device = env.device
     S = len(generators)
     if states_init is None:
@@ -500,28 +555,10 @@ def _denoise(env, cfg: MBDConfig, generators, states_init, chunk_size,
             Ybar = Ybar_saved
             Ybars = list(Ybars_saved[:T, None].to(device))
             rews_trace = list(rews_saved[:T, None].to(device))
-    for t, i in enumerate(range(cfg.Ndiffuse - 1, 0, -1)):
-        if t < start:
-            continue
-        e = eps[t] if eps is not None else draw_eps(generators, shape,
-                                                    device)
-        Ybar, rew = reverse_once(Ybar, i, e)
-        Ybars.append(Ybar)
-        rews_trace.append(rew)
-        if chunk_size > 0 and ((t + 1) % chunk_size == 0 or t + 1 == T):
-            if ckpt is not None:
-                c = t - t % chunk_size             # the chunk's first
-                ckpt.save(c, torch.stack(Ybars[c:])[:, 0],
-                          torch.stack(rews_trace[c:])[:, 0], Ybar[0],
-                          generators[0], chunk_size)
-            if progress_fn is not None:
-                progress_fn(t + 1, float(rew.mean()))
-    Ybars = torch.stack(Ybars, dim=1)                    # [S, T, H, nu]
-    final_reward, final_diverged = evaluate_final(env, states_init, Ybars,
-                                                  mesh)
-    return MBDResult(Ybars=Ybars, rews_trace=torch.stack(rews_trace, dim=1),
-                     final_reward=final_reward,
-                     final_diverged=final_diverged)
+    return SimpleNamespace(
+        states_init=states_init, reverse_once=reverse_once, shape=shape,
+        Ybar=Ybar, Ybars=Ybars, rews_trace=rews_trace, start=start,
+        ckpt=ckpt)
 
 
 def evaluate_final(env, states_init, plans: torch.Tensor, mesh=None):

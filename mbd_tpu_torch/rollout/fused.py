@@ -24,17 +24,26 @@ CUDA_CALLS = 0
 
 
 def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
-               U: torch.Tensor):
+               U: torch.Tensor, first: bool = False):
     """q0 [nq, N], qd0 [nv, N], U [H, nu, N] →
-    (qs [H, nq, N], qds [H, nv, N], diverged [N])."""
+    (qs [H, nq, N], qds [H, nv, N], diverged [N]), and with ``first`` the
+    env step at whose end each sample's flag first rose [N] (int32, −1
+    where it never did), as the kernel writes it into its first-flag
+    buffer."""
     q, qd = q0, qd0
     bad = torch.zeros_like(q0[0])
+    first_flag = torch.full(bad.shape, -1, dtype=torch.int32,
+                            device=bad.device)
     qs, qds = [], []
     for t in range(U.shape[0]):
         q, qd, bad = BT.env_step_checked_b(sys, q, qd, U[t], n_frames, bad)
+        if first:
+            first_flag = torch.where((first_flag < 0) & (bad != 0), t,
+                                     first_flag)
         qs.append(q)
         qds.append(qd)
-    return torch.stack(qs), torch.stack(qds), bad
+    out = torch.stack(qs), torch.stack(qds), bad
+    return out + (first_flag,) if first else out
 
 
 def env_step_outputs(env, q: torch.Tensor, qd: torch.Tensor,
@@ -87,11 +96,12 @@ def initial_states(sys, state0, N: int):
     return q0.contiguous(), qd0.contiguous()
 
 
-def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                               torch.Tensor]:
+def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
+                    first: bool = False) -> Tuple[Optional[torch.Tensor],
+                                                  ...]:
     """Y0s [N, H, nu] → (rews [N, H], qs [H, nq, N] if need_qs else None,
-    diverged [N])."""
+    diverged [N]), and with ``first`` each sample's first flagged env step
+    [N] (``rollout_qs``)."""
     global CUDA_CALLS
     if Y0s.is_cuda:
         CUDA_CALLS += 1
@@ -99,23 +109,28 @@ def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False
     N = Y0s.shape[0]
     U = Y0s.permute(1, 2, 0).contiguous()                # [H, nu, N]
     q0, qd0 = initial_states(sys, state0, N)
-    qs, qds, diverged = rollout_qs(sys, env.n_frames, q0, qd0, U)
+    qs, qds, diverged, *first_flag = rollout_qs(sys, env.n_frames, q0, qd0,
+                                                U, first)
     rews = env.reward_qs_b(qs, qds, U, q0, qd0)          # [H, N]
-    return rews.transpose(0, 1), (qs if need_qs else None), diverged
+    return (rews.transpose(0, 1), (qs if need_qs else None), diverged,
+            *first_flag)
 
 
 def rollout_outputs(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
-                    demo: bool = False) -> Tuple[torch.Tensor, ...]:
+                    demo: bool = False, first: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
     """The plain version of the CUDA rollout kernel: Y0s [N, H, nu] →
-    (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]]), in the order of
-    ``rollout_rewards_pallas``. The demo log-density is scored from the
-    position trace, as JAX's fused engine scores it
+    (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]][, first [N]]), in
+    the order of ``rollout_rewards_pallas``, with ``first`` (the kernel's
+    first-flag buffer) each sample's first flagged env step last
+    (``rollout_qs``). The demo log-density is scored from the position
+    trace, as JAX's fused engine scores it
     (``mbd_tpu/planners/mbd.py:179-188``)."""
-    rews, qs, bad = rollout_rewards(env, state0, Y0s,
-                                    need_qs=need_qs or demo)
+    rews, qs, bad, *first_flag = rollout_rewards(env, state0, Y0s,
+                                                 need_qs or demo, first)
     out = (rews, bad)
     if need_qs:
         out += (qs,)
     if demo:
         out += (env.traj_xref_logpd_qs(qs),)
-    return out
+    return out + tuple(first_flag)

@@ -1,7 +1,30 @@
-"""Tracing and profiling hooks (port of ``mbd_tpu/utils/profiling.py``):
-a ``torch.profiler`` trace of a block, exported as a Chrome trace, a
-phase timer that waits for the card before it reads the clock, and what
-a trace says of the card: its busy time and its kernels' device time.
+"""The port's one recorder, and its tracing and profiling hooks (port of
+``mbd_tpu/utils/profiling.py``).
+
+The recorder keeps spans and counters of the program's own phases.
+Spans are recorded while a ``torch.profiler`` records in this process (the
+benchmark's ``--trace 1``) and inside a ``recording()`` block; counters
+under the profiler and inside ``recording(counters=True)``, since feeding
+them adds work on the card (the rollout's first-flag buffer and its sum).
+Otherwise a span costs one check and is a shared no-op context, and a
+count nothing. A recorded span is also a
+``torch.profiler.record_function`` range, so it lands in the profiler's
+trace on the clock of the card's operations. The recorder keeps at most
+``MAX_SPANS`` spans (past them a span records nothing and is counted in
+``dropped``) and one running sum a counter and device.
+
+  with span("mbd.step", t=t):           # host start and end, parent, plan
+      ...
+  with span("mesh.gather", device=True):  # and CUDA events around it
+      ...
+  count("rollout.sample_steps", N * H)  # a host int or a device tensor
+  rec = recorded()                      # rec.spans, rec.counts[rank][name]
+  clear()
+
+Besides: a ``torch.profiler`` trace of a block exported as a Chrome
+trace, a phase timer that waits for the card before it reads the clock,
+and what a trace says of the card: its busy time and its kernels' device
+time.
 
   with trace("results/trace"):          # writes results/trace/trace.json
       mbd.plan(env, cfg, gen)
@@ -19,15 +42,238 @@ a trace says of the card: its busy time and its kernels' device time.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import subprocess
 import time
 from collections import defaultdict
-from typing import Dict, Iterable, Iterator, List, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, NamedTuple, \
+    Optional, Tuple
 
 import torch
 
 TRACE_FILE = "trace.json"
+# the program's span names start so (the recorder's namespaces)
+SPAN_PREFIXES = ("mbd.", "mesh.")
+# the most spans the recorder keeps (a profiled plan records about 5 a
+# reverse step)
+MAX_SPANS = 1 << 18
+# whether a torch.profiler records in this process
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: ``parent`` is the index of the span it ran in
+    within ``recorded().spans``, ``plan`` the id of the ``mbd.plan`` it
+    belongs to (a per-process count, the same on every rank for the same
+    plan), ``start`` and ``end`` the host's ``perf_counter`` seconds and,
+    for a span opened with ``device=True``, ``device_ms`` the time between
+    its CUDA events."""
+    name: str
+    parent: Optional[int]
+    plan: Optional[int]
+    rank: int
+    start: float
+    end: Optional[float] = None
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    device_ms: Optional[float] = None
+    events: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def host_s(self) -> float:
+        return self.end - self.start
+
+
+class Recorded(NamedTuple):
+    """What the recorder holds: the spans, each closed one resolved, the
+    counters' totals by rank and name, and the spans not kept past
+    ``MAX_SPANS``."""
+    spans: List[Span]
+    counts: Dict[int, Dict[str, int]]
+    dropped: int = 0
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+class Recorder:
+    """Spans and counters (the module's ``span``, ``count``,
+    ``recorded``, ``clear`` and ``recording`` act on one of these)."""
+
+    def __init__(self):
+        self.forced = self.forced_counts = 0
+        self.spans: List[Span] = []
+        self.open: List[int] = []
+        # (rank, name) → [host total, {device: its running sum}]
+        self.counts: Dict[Tuple[int, str], list] = {}
+        self.plans = self.dropped = 0
+
+    def on(self) -> bool:
+        return self.forced > 0 or _profiler_enabled()
+
+    def counting(self) -> bool:
+        return self.forced_counts > 0 or _profiler_enabled()
+
+    def enter(self, name: str, device: bool, plan: bool,
+              attrs: dict) -> Span:
+        parent = self.open[-1] if self.open else None
+        up = self.spans[parent] if parent is not None else None
+        if plan:
+            plan_id, self.plans = self.plans, self.plans + 1
+        else:
+            plan_id = up.plan if up is not None else None
+        rec = Span(name, parent, plan_id,
+                   up.rank if up is not None else _rank(), 0.0,
+                   attrs=attrs)
+        self.open.append(len(self.spans))
+        self.spans.append(rec)
+        if device:
+            rec.events = [torch.cuda.Event(enable_timing=True)
+                          for _ in "se"]
+            rec.events[0].record()
+        rec.start = time.perf_counter()
+        return rec
+
+    def exit(self, rec: Span) -> None:
+        rec.end = time.perf_counter()
+        if rec.events is not None:
+            rec.events[1].record()
+        if self.open:
+            self.open.pop()
+
+    def count(self, name: str, value) -> None:
+        entry = self.counts.setdefault((_rank(), name), [0, {}])
+        if isinstance(value, torch.Tensor):
+            value = value.reshape(()).to(torch.int64)
+            sums = entry[1]
+            sums[value.device] = sums[value.device] + value \
+                if value.device in sums else value
+        else:
+            entry[0] += int(value)
+
+    def recorded(self) -> Recorded:
+        for rec in self.spans:
+            if rec.events is not None and rec.end is not None:
+                rec.events[1].synchronize()
+                rec.device_ms = rec.events[0].elapsed_time(rec.events[1])
+                rec.events = None
+        counts: Dict[int, Dict[str, int]] = {}
+        for (rank, name), entry in self.counts.items():
+            entry[0] += sum(int(t) for t in entry[1].values())
+            entry[1] = {}
+            counts.setdefault(rank, {})[name] = entry[0]
+        return Recorded([dataclasses.replace(s, events=None)
+                         for s in self.spans], counts, self.dropped)
+
+    def merge(self, rec: Recorded, rank: int) -> None:
+        base = len(self.spans)
+        kept = rec.spans[:max(0, MAX_SPANS - base)]
+        for s in kept:
+            self.spans.append(dataclasses.replace(
+                s, rank=rank,
+                parent=None if s.parent is None else s.parent + base))
+        self.dropped += rec.dropped + len(rec.spans) - len(kept)
+        for names in rec.counts.values():
+            for name, value in names.items():
+                self.counts.setdefault((rank, name), [0, {}])[0] += value
+
+    def clear(self) -> None:
+        self.spans, self.open, self.counts = [], [], {}
+        self.dropped = 0
+
+
+RECORDER = Recorder()
+
+
+class _Span:
+    """A recorded span as a context (``span``)."""
+    __slots__ = ("args", "fn", "rec")
+
+    def __init__(self, *args):
+        self.args = args
+
+    def __enter__(self):
+        self.fn = torch.profiler.record_function(self.args[0])
+        self.fn.__enter__()
+        self.rec = RECORDER.enter(*self.args)
+        return self.rec
+
+    def __exit__(self, *exc):
+        RECORDER.exit(self.rec)
+        self.fn.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, device: bool = False, plan: bool = False, **attrs):
+    """A context that records the block as a span named ``name`` with
+    ``attrs``, while recording is on (``recording()``, or a
+    ``torch.profiler`` recording); otherwise a shared no-op context.
+    ``device``: with CUDA events on the current stream around it, whose
+    time ``recorded()`` resolves. ``plan``: the span starts a plan, whose
+    id the spans inside it carry."""
+    if not RECORDER.on():
+        return _OFF
+    if len(RECORDER.spans) >= MAX_SPANS:
+        RECORDER.dropped += 1
+        return _OFF
+    return _Span(name, device, plan, attrs)
+
+
+def count(name: str, value) -> None:
+    """Adds ``value`` (a host int, or an integer tensor of one element,
+    summed on its device and read when the records are) to this rank's
+    counter ``name``, while counters are on."""
+    if RECORDER.counting():
+        RECORDER.count(name, value)
+
+
+def on() -> bool:
+    """Whether spans are recorded now."""
+    return RECORDER.on()
+
+
+def counting() -> bool:
+    """Whether counters are kept now (a profiler records, or
+    ``recording(counters=True)``): the program feeds them only then."""
+    return RECORDER.counting()
+
+
+def recorded() -> Recorded:
+    """The spans (each closed one's CUDA events resolved, which waits for
+    them) and the counters' totals."""
+    return RECORDER.recorded()
+
+
+def merge(rec: Recorded, rank: int) -> None:
+    """Adds another process's ``recorded()`` to this recorder, its spans
+    and counts tagged ``rank`` (the mesh's ranks hand theirs back so), up
+    to ``MAX_SPANS`` spans."""
+    RECORDER.merge(rec, rank)
+
+
+def clear() -> None:
+    """Empties the recorder (plan ids keep counting)."""
+    RECORDER.clear()
+
+
+@contextlib.contextmanager
+def recording(counters: bool = False) -> Iterator[None]:
+    """Records spans inside the block, with no profiler, and with
+    ``counters`` the counters too."""
+    RECORDER.forced += 1
+    RECORDER.forced_counts += int(counters)
+    try:
+        yield
+    finally:
+        RECORDER.forced -= 1
+        RECORDER.forced_counts -= int(counters)
 
 
 @contextlib.contextmanager
@@ -91,9 +337,11 @@ class Timer:
 
 def device_events(prof) -> list:
     """The card's events of a finished ``torch.profiler`` trace: kernels,
-    copies and sets, each with its device time range."""
+    copies and sets, each with its device time range; the spans' ranges
+    that the profiler draws on the card's timeline are not among them."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def busy_us(spans: Iterable[Tuple[float, float]]) -> float:

@@ -343,3 +343,76 @@ def test_bench_hopper_short(card):
     line = bench.short_run(("hopper",), 6, 10)
     assert line["cells"]["hopper"]["reduced"] == [
         "Hsample 10 (published 50)", "Ndiffuse 6 (published 100)"]
+
+
+def _first_flag_case(card, name, N, H=10):
+    """(env, per-sample state, Y0s) whose rollouts flag: humanoidrun from
+    the card's humanoid states of ``assets/humanoid_flags.npz`` (their
+    recorded controls first, the flagged ones flag at once), hopper from
+    ``_flagged_states`` with every fourth sample's slide at 150 and a
+    hinge of others from 60 to 99 (some flag, some not); uniform controls
+    after that."""
+    env = envs.get_env(name, device=card)
+    gen = torch.Generator(card).manual_seed(0)
+    Y0s = 2 * torch.rand((N, H, env.action_size), generator=gen,
+                         device=card) - 1
+    if name == "humanoidrun":
+        from mbd_tpu_torch.rollout import replay
+
+        with np.load(replay.FLAG_STATES) as d:
+            q, qd, u = (torch.from_numpy(d[f"humanoidrun/{k}"]).to(card)
+                        for k in ("q", "qd", "u"))
+        k = N // q.shape[0]
+        q, qd = q.repeat(k, 1).T.contiguous(), qd.repeat(k, 1).T.contiguous()
+        Y0s[:, 0] = u.repeat(k, 1)
+    else:
+        q, qd = _flagged_states(env, gen, N)
+        qd[0, ::4] = 150.0
+        qd[3, 2::4] = torch.linspace(60.0, 99.0, len(qd[3, 2::4]),
+                                     device=card)
+    return env, SimpleNamespace(pipeline_state=SimpleNamespace(q=q, qd=qd)), \
+        Y0s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,N", [("humanoidrun", 1024), ("hopper", 256)])
+def test_kernel_first_flag_matches_plain_version(card, name, N):
+    """The kernel's first flagged env step equals the plain version's,
+    sample by sample, and some samples flag; while the recorder counts,
+    the wrapper counts N·H sample-steps and Σ H − 1 − first over the
+    flagged samples, summed on the card."""
+    from mbd_tpu_torch.utils import profiling
+
+    env, state0, Y0s = _first_flag_case(card, name, N)
+    H = Y0s.shape[1]
+    out = rollout_cuda.library(env).run(env, state0, Y0s, first=True)
+    plain = rollout_outputs(env, state0, Y0s, first=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[-1], plain[-1])
+    assert torch.equal(out[1], plain[1])
+    first = out[-1]
+    assert bool((first >= 0).any())
+    profiling.clear()
+    with profiling.recording(counters=True):
+        rollout_cuda.rollout_rewards_cuda(env, state0, Y0s)
+    counts = profiling.recorded().counts[0]
+    profiling.clear()
+    assert counts == {"rollout.sample_steps": N * H,
+                      "rollout.tail_sample_steps":
+                      int(((H - 1) - first[first >= 0]).sum())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["humanoidrun", "hopper"])
+def test_counting_form_leaves_rewards_and_flags(card, name):
+    """Rewards and flags bit for bit the same with the first-flag buffer
+    and without it (one kernel: the buffer only adds a write)."""
+    env, state0, Y0s = _first_flag_case(card, name, 512)
+    built = rollout_cuda.library(env)
+    plain = built.run(env, state0, Y0s)
+    counted = built.run(env, state0, Y0s, first=True)
+    torch.cuda.synchronize()
+    assert len(counted) == len(plain) + 1
+    for a, b in zip(plain, counted):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))

@@ -61,6 +61,7 @@ import shutil
 import subprocess
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -128,7 +129,8 @@ DRIVER = """
 extern "C" void cpu_rollout(const float* q0, const float* qd0,
                             int per_sample, const float* U, float* rews,
                             float* bad, float* qs, const float* xref,
-                            float* logpd, float* qd_out, int N, int H) {
+                            float* logpd, float* qd_out, int* first, int N,
+                            int H) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(W);
@@ -145,7 +147,7 @@ extern "C" void cpu_rollout(const float* q0, const float* qd0,
         const Group<kG> g{t % kG, t - t % kG, &bar, words, bits, ints};
         rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
                            per_sample, U, rews, bad, qs, xref, logpd, qd_out,
-                           N, H);
+                           first, N, H);
       });
     for (auto& t : lanes) t.join();
   }
@@ -177,7 +179,7 @@ def _cpu_kernel(env, out_dir, G):
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(so)
     lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     lib.cpu_rollout.restype = None
     return lib
 
@@ -297,7 +299,7 @@ def _run(name, out_dir, need_qs=False, demo=False, sys=None, inputs=None,
 
     lib.cpu_rollout(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
                     rews.data_ptr(), bad.data_ptr(), ptr(qs), ptr(xref),
-                    ptr(logpd), ptr(qd_out), N, 1)
+                    ptr(logpd), ptr(qd_out), None, N, 1)
     state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
     plain = rollout_outputs(env, state, Y0s, need_qs=need_qs, demo=demo)
     if state_out:
@@ -467,3 +469,40 @@ def test_kernel_source_state_out(name, tmp_path, libm_math):
     assert torch.equal(kernel[2], plain[2])
     assert torch.equal(kernel[3], plain[3])
     assert float(kernel[3].abs().max()) > 0
+
+
+def test_kernel_source_first_flag(tmp_path):
+    """The kernel's first-flag buffer on the card's humanoidrun states
+    (``assets/humanoid_flags.npz``), one substep an env step over 3 steps:
+    each sample's first flagged env step is the plain version's
+    (``rollout_qs``), its flagged states at step 0, and the rewards and
+    flags are those of the launch without the buffer, bit for bit."""
+    import torch_flag_check as F
+
+    env = envs.get_env("humanoidrun", device="cpu")
+    env.n_frames = 1
+    lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
+    d = F.fixture("humanoidrun")
+    q0 = torch.from_numpy(np.ascontiguousarray(d["q"].T))
+    qd0 = torch.from_numpy(np.ascontiguousarray(d["qd"].T))
+    n, H = q0.shape[1], 3
+    U = torch.rand((H, env.action_size, n),
+                   generator=torch.Generator().manual_seed(0)) * 2 - 1
+    U[0] = torch.from_numpy(d["u"].T)
+    U = U.contiguous()
+    outs = []
+    for first in (None, torch.empty(n, dtype=torch.int32)):
+        rews, bad = torch.empty((H, n)), torch.empty(n)
+        lib.cpu_rollout(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
+                        rews.data_ptr(), bad.data_ptr(), None, None, None,
+                        None, None if first is None else first.data_ptr(),
+                        n, H)
+        outs.append((rews, bad, first))
+    (rews, bad, _), (rews_c, bad_c, first) = outs
+    assert torch.equal(rews.view(torch.int32), rews_c.view(torch.int32))
+    assert torch.equal(bad, bad_c)
+    assert torch.equal(first,
+                       rollout_qs(env.sys, 1, q0, qd0, U, first=True)[3])
+    assert torch.equal(first[torch.from_numpy(d["flagged"])],
+                       torch.zeros(int(d["flagged"].sum()),
+                                   dtype=torch.int32))

@@ -219,13 +219,42 @@ def test_main_needs_two_cards(capsys):
     assert "at least 2" in capsys.readouterr().err
 
 
-def test_timed_mesh_records_each_gather():
-    """``TimedMesh`` keeps the mesh's fields and logs each gather's bytes
-    (on the CPU without a time)."""
-    mesh = SampleMesh(group=None, rank=0, size=1, device=torch.device("cpu"))
-    timed = multichip.TimedMesh.of(mesh)
-    assert (timed.rank, timed.size, timed.device) == (0, 1, mesh.device)
-    assert timed.collectives is mesh.collectives
+def test_timed_run_reads_the_gathers_from_their_spans(tmp_path):
+    """``timed_run`` records the run (``profiling.recording``) and reads
+    its gathers from the ``mesh.gather`` spans: a tiny hopper plan on a
+    gloo mesh of one rank gathers once a step and once for the final
+    selection, each time the [S·N, H + 1] rewards and flags (on the CPU
+    without a time); the recorder holds that run alone."""
+    import torch.distributed as dist
+
+    from mbd_tpu_torch import envs
+    from mbd_tpu_torch.parallel.mesh import sample_mesh
+    from mbd_tpu_torch.utils import profiling
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = sample_mesh(device="cpu")
+        case = multichip.Case("hopper", "plan", mbd.MBDConfig(
+            Nsample=8, Hsample=2, Ndiffuse=3))
+        env = envs.get_env("hopper", device="cpu")
+        with profiling.recording():
+            with profiling.span("mbd.step", t=0):
+                pass
+        with R.one_thread():
+            out = multichip.timed_run(case, env, mesh, [])
+    finally:
+        dist.destroy_process_group()
+    rec = profiling.recorded()
+    profiling.clear()
+    assert out["gathers"] == 3
+    assert out["gather_bytes"] == [2 * 3 * 4, 8 * 3 * 4]
+    assert out["gather_ms"] is None
+    assert sum(s.name == "mbd.plan" for s in rec.spans) == 1
+    assert sum(s.name == "mesh.gather" for s in rec.spans) == 3
+    # the timed run keeps no counter, so the rollout fills no first flags
+    assert rec.counts == {}
+    assert not profiling.on()
 
 
 @pytest.mark.parametrize("size", (1, 2, 4, 8))

@@ -212,3 +212,23 @@ def multichip_cases(mesh, jax_inputs):
                             state_init=state, eps=jax_inputs["eps"])
     out["final"] = final_split(mesh)
     return out
+
+
+# tests/test_torch_tracing.py's tiny plan_batch: hopper, 2 seeds
+TRACE_CFG = dict(Nsample=16, Hsample=4, Ndiffuse=4)
+TRACE_SEEDS = (0, 1)
+
+
+def traced_plan(mesh=None, device="cpu"):
+    """The tiny ``plan_batch`` of ``TRACE_CFG`` over the mesh (or in one
+    process), recorded by the recorder with its counters
+    (``profiling.recording``); its fields."""
+    from mbd_tpu_torch.utils import profiling
+
+    device = mesh.device if mesh is not None else device
+    env = envs.get_env("hopper", device=device)
+    gens = [torch.Generator(device).manual_seed(s) for s in TRACE_SEEDS]
+    with profiling.recording(counters=True):
+        res = mbd.plan_batch(env, mbd.MBDConfig(**TRACE_CFG), gens,
+                             mesh=mesh)
+    return _fields(res)
