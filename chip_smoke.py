@@ -26,7 +26,9 @@ Phases, each of which raises on failure (exit code 1):
    initial states and the demo; pushT with per-sample initial states whose
    pushers lie inside a bar of the slider, within the pusher's radius
    outside one, or clear of both (the sphere–box pair's two branches), and
-   with the trace;
+   with the trace; the plain version's ``retire`` output of humanoidrun at
+   2048 × 50 (the retiring form's exit alone, as on a mesh shard) and of
+   hopper at 16 384 × 50 (its refill alone, as in hopper's 8-seed batch);
 3. as each build ends, the kernel against those plain runs (rewards,
    traces and log-densities to atol 1e-5, validity flags equal), its own
    time by CUDA events and its bound, then that model's path. After a
@@ -37,7 +39,13 @@ Phases, each of which raises on failure (exit code 1):
    humanoidrun's the plain version runs through ``replay.first_flags``,
    whose flags must equal the kernel's, and its line prints the flagged
    count by check and the tail share (the sample-substeps after each
-   sample's first flag):
+   sample's first flag). The retiring form (``retire=True``, the planner's
+   reverse step without the demo) is held against the plain version's
+   ``retire`` output at each path's shape without the demo and at the two
+   shapes above: flags and first flags equal, the NaN of fixed bits after
+   each first flag, the other rewards to atol 1e-5, the queue's counts;
+   timed beside the whole form, its bound the work of the sample-steps it
+   runs:
    - hopper: ``envs.get_env("hopper", device="cuda")`` → ``mbd.plan`` at
      ``recommended_config("hopper")`` (2048 / 50 / 100), seed 0, to a
      clean final reward of at least 1.8, compared at N = 2048, H = 50;
@@ -148,8 +156,9 @@ Phases, each of which raises on failure (exit code 1):
    mesh's, MNIST's and the explainer's, the bench's line, one with the
    kernels' numbers
    (with each baseline's launches, final reward and wall, each batched
-   path's, the viewer's, the resume's and the mesh's launches, and the
-   state-out mode's), then the device line.
+   path's, the viewer's, the resume's and the mesh's launches, the
+   state-out mode's, and the retiring form's at each of its shapes), then
+   the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; comparison launches are not counted. It needs one CUDA
@@ -236,18 +245,22 @@ class Case:
 
     def __init__(self, torch, envs, name, N, H, gen, per_sample=False,
                  need_qs=False, demo=False, timed=False, path=None,
-                 flags=False):
+                 flags=False, retire=False):
         """``path``: (env, initial state, final plan [H, nu]) of a plan
         just driven; the comparison then starts from the plan's initial
         state, with the final plan as sample 0. ``flags``: the plain
         version runs through ``replay.first_flags``, whose record
-        (``self.flags``) also gives each sample's first flagged substep."""
+        (``self.flags``) also gives each sample's first flagged substep.
+        ``retire``: the plain version's output is its ``retire`` one, for
+        the retiring form alone (``check_retire``). Each sample's first
+        flagged env step (−1: none) is kept in ``self.first``."""
         from mbd_tpu_torch.rollout import replay
         from mbd_tpu_torch.rollout.fused import rollout_outputs
         from mbd_tpu_torch.utils.work import acting_rows
 
         self.name, self.N, self.H, self.per_sample = name, N, H, per_sample
         self.need_qs, self.demo, self.timed = need_qs, demo, timed
+        self.retire, self.path = retire, path is not None
         if path is not None:
             env, state0, plan = path
         else:
@@ -283,10 +296,14 @@ class Case:
 
             self.plain_ms, ((self.plain, self.flags), self.rows) = time_ms(
                 torch, lambda: acting_rows(plain), 1)
+            first = self.flags.first
+            self.first = torch.where(first >= 0, first // env.n_frames, -1)
         else:
-            self.plain_ms, (self.plain, self.rows) = time_ms(
+            self.plain_ms, (out, self.rows) = time_ms(
                 torch, lambda: acting_rows(rollout_outputs, env, state0,
-                                           self.Y0s, need_qs, demo), 1)
+                                           self.Y0s, need_qs, demo,
+                                           first=True, retire=retire), 1)
+            self.plain, self.first = out[:-1], out[-1]
 
     def modes(self):
         return ["base"] + ["need_qs"] * self.need_qs + ["demo"] * self.demo
@@ -295,8 +312,9 @@ class Case:
         census = "" if self.census is None else (
             " pusher (inside a bar, touching one, clear) per pair "
             f"{self.census}")
+        modes = "retire" if self.retire else "+".join(self.modes())
         return (f"{self.name} N={self.N} H={self.H} per_sample="
-                f"{self.per_sample} modes={'+'.join(self.modes())}{census}")
+                f"{self.per_sample} modes={modes}{census}")
 
     def bytes(self):
         """What the kernel must move (``utils/work.py::rollout_bytes``)."""
@@ -368,6 +386,60 @@ class Case:
               f"{r.contacts} contact, {r.limits_acting} of {r.limits} "
               f"limit)", flush=True)
         return err, ms, bound_ms, bound_by
+
+    def check_retire(self, torch, rc, reps=3):
+        """The retiring form on the same inputs, against the plain
+        version's ``retire`` output: flags and first flags equal, every
+        reward after a sample's first flagged env step the NaN of bits
+        ``RETIRED_BITS``, the others to ATOL, every sample taken from the
+        queue once and the env steps the kernel counts those up to each
+        first flag. Its ms, the whole form's on the same inputs, and its
+        bound: the operations of the sample-steps it runs (those per
+        sample-step of ``ops_per_sample_step``, which the plain version
+        recorded over the whole rollout) and the bytes of a launch."""
+        from mbd_tpu_torch.rollout.fused import RETIRED_BITS
+        from mbd_tpu_torch.utils.work import bound_ms
+
+        env, N, H = self.env, self.N, self.H
+        first = self.first.to(torch.int32)
+        rews, bad, first_k, queue = rc.library(env).run(
+            env, self.state0, self.Y0s, first=True, retire=True)
+        torch.cuda.synchronize()
+        after = (torch.arange(H, device="cuda")[None] > first[:, None]) & \
+            (first >= 0)[:, None]
+        ran = int(torch.where(first >= 0, first + 1, H).sum())
+        nan = bool((rews.contiguous().view(torch.int32)[after]
+                    == RETIRED_BITS).all())
+        flags = bool(torch.equal(bad, self.plain[1])) and bool(
+            torch.equal(first_k, first))
+        err = float((rews[~after] - self.plain[0][~after]).abs().max())
+        if not (err <= ATOL and flags and nan
+                and queue.tolist() == [N, ran]):
+            raise AssertionError(
+                f"{self.label()}: retiring form and plain version differ "
+                f"(max|Δrews| {err:.3g} > {ATOL}, flags and first flags "
+                f"equal {flags}, NaN after each first flag {nan}, queue "
+                f"{queue.tolist()} against {[N, ran]})")
+        ms, _ = time_ms(torch, lambda: rc.rollout_rewards_cuda(
+            env, self.state0, self.Y0s, retire=True), reps)
+        whole_ms, _ = time_ms(torch, lambda: rc.rollout_rewards_cuda(
+            env, self.state0, self.Y0s), reps)
+        bound, bound_by = bound_ms(self.ops_per_sample_step() * ran,
+                                   self.bytes())
+        a = rc.library(env).attrs(N, retire=True)
+        resident = a["blocks_per_sm"] * a["threads_per_block"] // a["G"] \
+            * torch.cuda.get_device_properties(0).multi_processor_count
+        out = dict(shape=f"{N}x{H}", refill=N > resident,
+                   flagged=int(bad.sum()), ran_share=ran / (N * H),
+                   max_abs_err=err, ms=ms, whole_ms=whole_ms,
+                   plain_ms=self.plain_ms, bound_ms=bound, bound_by=bound_by)
+        print(f"check {self.label()} retiring: max|Δrews| {err:.3g} (atol "
+              f"{ATOL:g}), flags and first flags equal, NaN after each "
+              f"first flag, {out['flagged']} flagged, {ran} of {N * H} "
+              f"sample-steps run, refill {out['refill']}; kernel {ms:.3f} "
+              f"ms (whole form {whole_ms:.3f} ms), bound {bound:.4f} ms "
+              f"({bound_by})", flush=True)
+        return out
 
 
 def sphere_box_census(env, state0):
@@ -1683,7 +1755,11 @@ def main() -> int:
         dict(name="humanoidtrack", N=N_CHECK, H=H_CHECK, per_sample=True,
              demo=True),
         dict(name="pushT", N=N_CHECK, H=H_CHECK, per_sample=True,
-             need_qs=True)]
+             need_qs=True),
+        # the retiring form where only its exit engages (the mesh's shard)
+        # and where only its refill does (hopper_seeds8's launch)
+        dict(name="humanoidrun", N=2048, H=50, retire=True),
+        dict(name="hopper", N=16384, H=50, retire=True)]
     def plain(**spec):
         case = Case(torch, envs, gen=gen, **spec)
         print(f"plain {case.label()}: {case.plain_ms:.1f} ms ({elapsed()})",
@@ -1694,10 +1770,16 @@ def main() -> int:
 
     # 3. as each build ends: its checks, then its path
     stats = {name: dict(max_abs_err=0.0, launches=0, modes=set(),
-                        baselines={}, plan_batch=None) for name in ENVS}
+                        baselines={}, plan_batch=None, retire=[])
+             for name in ENVS}
 
     def check(case):
         st = stats[case.name]
+        if case.retire or (case.path and not case.demo):
+            # the retiring form, at each path's shape too
+            st["retire"].append(case.check_retire(torch, rc))
+        if case.retire:
+            return
         err, ms, bound_ms, bound_by = case.check(torch, rc)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st["modes"].update(case.modes())
@@ -1884,7 +1966,14 @@ def main() -> int:
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None}
         for name, algo, st in (("pushT", "ppo", rl_step["pushT"]),
-                               ("hopper", "sac", rl_step["hopper"]))]}))
+                               ("hopper", "sac", rl_step["hopper"]))] + [{
+        # the retiring form, the planner's reverse step without the demo:
+        # a form of the same kernel with no Pallas counterpart; its bound
+        # counts the sample-steps it runs, up to each first flag
+        "name": f"rollout_retire[{name}]", "route": "cuda",
+        "source": "mbd_tpu_torch/csrc/rollout.cu", "replaces": None,
+        "modes": ["retire"], **r, "library_ms": None}
+        for name in ENVS for r in stats[name]["retire"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,8 @@
 // (mbd_tpu_torch/rl/batched_env.py; JAX takes that step with XLA outside
 // Pallas, mbd_tpu/rl/batched_env.py:83-86). Where the caller passes a
 // buffer first[N], the launch also writes each sample's first flagged env
-// step into it (the recorder's tail count, utils/profiling.py).
+// step into it (the recorder's tail count, utils/profiling.py). The
+// retiring form (below) stops each sample at its first flag.
 //
 // What bounds it on this card: latency, not bytes. A substep of one sample
 // is a few thousand dependent float operations (tens of thousands on the
@@ -39,9 +40,20 @@
 // that the tree does not let split (forward kinematics, the final solve and
 // the integrator, the reward and the demo score) run on lane 0; the
 // hinges' half-angle sines and cosines, which forward kinematics needs, are
-// taken first, a hinge a lane. Every lane of a warp runs to the end, the
-// groups past N on a copy of the last sample with their writes masked, so
-// the group's barrier is the warp's and a warp's groups keep in step.
+// taken first, a hinge a lane. Every lane of a warp takes every barrier,
+// so the group's barrier is the warp's and a warp's groups keep in step,
+// each on its own sample.
+//
+// Two forms. The whole form (rollout_kernel, every mode) gives each group
+// one sample for all H env steps, the groups past N on a copy of the last
+// sample with their writes masked. The retiring form
+// (rollout_kernel_retire, the planner's reverse step: rewards, flags and
+// first flags only) ends a sample at the end of its first flagged env
+// step, whose later rewards no planner reads, and hands its group the next
+// unstarted sample from a launch-wide queue (one atomicAdd), so that a
+// group, and with it its warp and block, is freed for work that is read.
+// It runs no more blocks than reside at once, each group to the queue's
+// end: under that, the whole form's grid, and only the exit engages.
 //
 // Only the active constraint rows are solved. A row acts only where its
 // force cap is positive (a contact in penetration with a positive reference
@@ -1025,6 +1037,106 @@ __device__ void track_cost(Work& s, const float* xref_t, float& acc) {
 }
 #endif
 
+// Sample n's initial state into the slice (lane 0): q0 [NQ] and qd0 [NV]
+// shared by every sample, or q0 [NQ, N] and qd0 [NV, N] per sample.
+__device__ __forceinline__ void load_state(Work& s,
+                                           const float* __restrict__ q0,
+                                           const float* __restrict__ qd0,
+                                           int per_sample, int n, int N) {
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) s.q[i] = per_sample ? q0[i * N + n] : q0[i];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    s.qd[i] = per_sample ? qd0[i * N + n] : qd0[i];
+}
+
+// Env step t's controls of sample n into the slice, and what the reward
+// reads of the state before the step (lane 0).
+__device__ __forceinline__ void begin_step(Work& s,
+                                           const float* __restrict__ U,
+                                           int t, int n, int N,
+                                           float& x_prev, float& r_pre) {
+#pragma unroll
+  for (int a = 0; a < NU; ++a) s.u[a] = U[(t * NU + a) * N + n];
+  x_prev = s.q[0];
+  // the track reward reads the pre-step state (free root: torso x
+  // velocity qd[0], torso (y, z) = q[1], q[2])
+  if (kReward == kRewardTrack) {
+    r_pre = 1.0f + (-fabsf(s.qd[0] - kVTarget) - fabsf(s.q[2] - kZTarget) -
+                    0.1f * fabsf(s.q[1]));
+  }
+}
+
+// One env step's NFRAMES substeps by the group, each followed on lane 0 by
+// the validity checks, whose flag rises and stays, and the velocity clamp.
+template <int G>
+__device__ __forceinline__ void physics_step(const Group<G>& g, Slice& s,
+                                             float& bad) {
+#pragma unroll 1
+  for (int f = 0; f < NFRAMES; ++f) {
+    substep<G>(g, s);
+    if (g.lane == 0) {
+      // validity: NaN-propagating max|qd|, then the root-height sensors
+      float* qd = s.qd;
+      float speed = fabsf(qd[0]);
+#pragma unroll
+      for (int i = 1; i < NV; ++i) speed = tmax(speed, fabsf(qd[i]));
+      bad = tmax(bad, speed > kQdDiverged ? 1.0f : 0.0f);
+#pragma unroll
+      for (int k = 0; k < NSENSOR; ++k) {
+        bad = tmax(bad, s.q[sensor_qadr(k)] + sensor_off(k) < kZmin
+                            ? 1.0f : 0.0f);
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        qd[i] = tmin(tmax(qd[i], -kQdDiverged), kQdDiverged);
+    }
+  }
+}
+
+// The env step's reward, from the state after it (lane 0).
+__device__ __forceinline__ float step_reward(const Work& s, float x_prev,
+                                             float r_pre) {
+  const float* q = s.q;
+  const float* qd = s.qd;
+  const float* u = s.u;
+  float r;
+  if (kReward == kRewardTrack) {
+    r = r_pre;
+  } else if (kReward == kRewardProgress) {
+    r = q[0] - 0.5f * tmin(tmax(fabsf(q[1] - kZTarget), -1.0f), 1.0f);
+  } else if (kReward == kRewardVelocity) {
+    float cost = u[0] * u[0];
+#pragma unroll
+    for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
+    r = (q[0] - x_prev) * kInvDt - kCtrlCost * cost;
+  } else if (kReward == kRewardSwingup) {
+    r = cosf(q[1]) - fabsf(qd[0]);
+  } else if (kReward == kRewardRun) {  // free root: torso (x, y, z) = q[0:3]
+    r = q[0] - tmin(tmax(fabsf(q[2] - kZTarget), -1.0f), 1.0f) -
+        0.1f * fabsf(q[1]);
+  } else if (kReward == kRewardStandup) {
+    r = 1.5f - tmin(tmax(fabsf(q[2] - kZTarget), -2.0f), 1.0f) -
+        0.1f * fabsf(q[0]) - 0.1f * fabsf(q[1]);
+  } else if (kReward == kRewardPush) {
+    // 1 − ((‖goal − slider‖ + |Δθ|/π) + max(‖pusher − slider‖ − 0.2, 0))
+    const float gx = q[5] - q[2], gy = q[6] - q[3];
+    const float px = q[0] - q[2], py = q[1] - q[3];
+    const float d_goal = sqrtf(gx * gx + gy * gy);
+    const float d_theta = fabsf(q[7] - q[4]) * kInvPi;
+    const float d_ps = tmax(sqrtf(px * px + py * py) - 0.2f, 0.0f);
+    r = 1.0f - ((d_goal + d_theta) + d_ps);
+  } else {  // healthy velocity: forward speed + healthy − ctrl_cost·Σu²
+    float cost = u[0] * u[0];
+#pragma unroll
+    for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
+    const float healthy =
+        (q[2] >= kZLow && q[2] <= kZHigh) ? 1.0f : 0.0f;
+    r = (q[0] - x_prev) / kDt + healthy - kCtrlCost * cost;
+  }
+  return r;
+}
+
 // Sample n's whole rollout, by the group g in the slice s. qs [H, NQ, N]
 // (the post-step position trace), logpd [N] (the demo log-density,
 // against xref [H_demo, NTRACK, 3]) and qd_out [NV, N] (the velocities
@@ -1049,90 +1161,19 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                float* __restrict__ qd_out,
                                int* __restrict__ first_out, int N, int H) {
   float bad = 0.0f, acc = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
-  if (g.lane == 0) {
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) s.q[i] = per_sample ? q0[i * N + n] : q0[i];
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      s.qd[i] = per_sample ? qd0[i * N + n] : qd0[i];
-  }
+  if (g.lane == 0) load_state(s, q0, qd0, per_sample, n, N);
 #pragma unroll 1
   for (int t = 0; t < H; ++t) {
-    if (g.lane == 0) {
-#pragma unroll
-      for (int a = 0; a < NU; ++a) s.u[a] = U[(t * NU + a) * N + n];
-      x_prev = s.q[0];
-      // the track reward reads the pre-step state (free root: torso x
-      // velocity qd[0], torso (y, z) = q[1], q[2])
-      if (kReward == kRewardTrack) {
-        r_pre = 1.0f + (-fabsf(s.qd[0] - kVTarget) - fabsf(s.q[2] - kZTarget) -
-                        0.1f * fabsf(s.q[1]));
-      }
-    }
-#pragma unroll 1
-    for (int f = 0; f < NFRAMES; ++f) {
-      substep<G>(g, s);
-      if (g.lane == 0) {
-        // validity: NaN-propagating max|qd|, then the root-height sensors
-        float* qd = s.qd;
-        float speed = fabsf(qd[0]);
-#pragma unroll
-        for (int i = 1; i < NV; ++i) speed = tmax(speed, fabsf(qd[i]));
-        bad = tmax(bad, speed > kQdDiverged ? 1.0f : 0.0f);
-#pragma unroll
-        for (int k = 0; k < NSENSOR; ++k) {
-          bad = tmax(bad, s.q[sensor_qadr(k)] + sensor_off(k) < kZmin
-                              ? 1.0f : 0.0f);
-        }
-#pragma unroll
-        for (int i = 0; i < NV; ++i)
-          qd[i] = tmin(tmax(qd[i], -kQdDiverged), kQdDiverged);
-      }
-    }
+    if (g.lane == 0) begin_step(s, U, t, n, N, x_prev, r_pre);
+    physics_step<G>(g, s, bad);
     if (g.lane != 0) continue;
     if (bad == 1.0f) bad = static_cast<float>(t + 2);
-    const float* q = s.q;
-    const float* qd = s.qd;
-    const float* u = s.u;
-    float r;
-    if (kReward == kRewardTrack) {
-      r = r_pre;
-    } else if (kReward == kRewardProgress) {
-      r = q[0] - 0.5f * tmin(tmax(fabsf(q[1] - kZTarget), -1.0f), 1.0f);
-    } else if (kReward == kRewardVelocity) {
-      float cost = u[0] * u[0];
-#pragma unroll
-      for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
-      r = (q[0] - x_prev) * kInvDt - kCtrlCost * cost;
-    } else if (kReward == kRewardSwingup) {
-      r = cosf(q[1]) - fabsf(qd[0]);
-    } else if (kReward == kRewardRun) {  // free root: torso (x, y, z) = q[0:3]
-      r = q[0] - tmin(tmax(fabsf(q[2] - kZTarget), -1.0f), 1.0f) -
-          0.1f * fabsf(q[1]);
-    } else if (kReward == kRewardStandup) {
-      r = 1.5f - tmin(tmax(fabsf(q[2] - kZTarget), -2.0f), 1.0f) -
-          0.1f * fabsf(q[0]) - 0.1f * fabsf(q[1]);
-    } else if (kReward == kRewardPush) {
-      // 1 − ((‖goal − slider‖ + |Δθ|/π) + max(‖pusher − slider‖ − 0.2, 0))
-      const float gx = q[5] - q[2], gy = q[6] - q[3];
-      const float px = q[0] - q[2], py = q[1] - q[3];
-      const float d_goal = sqrtf(gx * gx + gy * gy);
-      const float d_theta = fabsf(q[7] - q[4]) * kInvPi;
-      const float d_ps = tmax(sqrtf(px * px + py * py) - 0.2f, 0.0f);
-      r = 1.0f - ((d_goal + d_theta) + d_ps);
-    } else {  // healthy velocity: forward speed + healthy − ctrl_cost·Σu²
-      float cost = u[0] * u[0];
-#pragma unroll
-      for (int a = 1; a < NU; ++a) cost = cost + u[a] * u[a];
-      const float healthy =
-          (q[2] >= kZLow && q[2] <= kZHigh) ? 1.0f : 0.0f;
-      r = (q[0] - x_prev) / kDt + healthy - kCtrlCost * cost;
-    }
+    const float r = step_reward(s, x_prev, r_pre);
     if (!live) continue;
     rews[t * N + n] = r;
     if (qs != nullptr) {
 #pragma unroll
-      for (int i = 0; i < NQ; ++i) qs[(t * NQ + i) * N + n] = q[i];
+      for (int i = 0; i < NQ; ++i) qs[(t * NQ + i) * N + n] = s.q[i];
     }
 #if NTRACK > 0
     if (logpd != nullptr) track_cost(s, xref + t * NTRACK * 3, acc);
@@ -1151,6 +1192,79 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
 #endif
 }
 
+// A retiring group's place, in shared memory beside its slice, where a
+// register would cost every lane one (humanoidrun, at its 128-register
+// cap, spills 188 / 200 bytes with n and t in registers against 164 /
+// 164 with them here): its sample (−1 once the queue is empty) and the
+// env step it is at.
+struct Book {
+  int n, t;
+};
+
+// The retiring form: the group starts with sample n and ends each sample
+// at the end of its first flagged env step, or of step H − 1. The sample's
+// rewards up to that step, its flag and first_out [N] (where not null) are
+// the whole form's; its rewards after it are a quiet NaN of fixed bits,
+// which no planner reads (they read no flagged sample's rewards). Lane 0
+// adds the env steps it ran, t + 1, to queue[1], takes the next sample
+// from the launch-wide queue, started + one atomicAdd on queue[0], and
+// starts it at t = 0 from its initial state: the slice carries only q, qd
+// and u from one substep to the next,
+// and load_state and begin_step set all three. A group that finds the
+// queue empty replays sample N − 1 from its start and writes nothing, so
+// that its lanes keep taking the warp's barriers; the warp leaves once
+// none of its groups holds a sample.
+template <int G>
+__device__ void rollout_retiring(const Group<G>& g, Slice& s, Book& b, int n,
+                                 const float* __restrict__ q0,
+                                 const float* __restrict__ qd0,
+                                 int per_sample,
+                                 const float* __restrict__ U,
+                                 float* __restrict__ rews,
+                                 float* __restrict__ bad_out,
+                                 int* __restrict__ first_out,
+                                 int* __restrict__ queue, int started, int N,
+                                 int H) {
+  float bad = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
+  if (g.lane == 0) {
+    b.n = n < N ? n : -1;
+    b.t = 0;
+    load_state(s, q0, qd0, per_sample, n < N ? n : N - 1, N);
+  }
+#pragma unroll 1
+  for (;;) {
+    if (g.lane == 0) begin_step(s, U, b.t, b.n < 0 ? N - 1 : b.n, N, x_prev,
+                                r_pre);
+    physics_step<G>(g, s, bad);
+    int held = 0;
+    if (g.lane == 0) {
+      const int m = b.n, t = b.t;
+      const float r = step_reward(s, x_prev, r_pre);
+      if (m >= 0) rews[t * N + m] = r;
+      if (bad != 0.0f || t == H - 1) {
+        int next = m;
+        if (m >= 0) {
+          bad_out[m] = bad != 0.0f ? 1.0f : 0.0f;
+          if (first_out != nullptr) first_out[m] = bad != 0.0f ? t : -1;
+          for (int k = t + 1; k < H; ++k)
+            rews[k * N + m] = __int_as_float(0x7fffffff);
+          atomicAdd(queue + 1, t + 1);
+          next = started + atomicAdd(queue, 1);
+          if (next >= N) next = -1;
+        }
+        b.n = next;
+        b.t = 0;
+        bad = 0.0f;
+        load_state(s, q0, qd0, per_sample, next < 0 ? N - 1 : next, N);
+      } else {
+        b.t = t + 1;
+      }
+      held = b.n >= 0;
+    }
+    if (g.warp_max(held) == 0) return;
+  }
+}
+
 // --- launch ---
 // The blocks that shared memory lets reside on an SM (228 KB; a block
 // holds its slices, the model's tables and the 1 KB the system reserves),
@@ -1161,7 +1275,20 @@ constexpr long kBlockBytes = kSharedBytes + sizeof(Tables) + 1024;
 constexpr int kMinBlocks = 233472 / kBlockBytes < 1 ? 1
                            : (233472 / kBlockBytes > 4 ? 4
                                                        : 233472 / kBlockBytes);
+// the retiring form's dynamic shared memory: the slices, then the groups'
+// Books
+constexpr int kRetireBytes = kSharedBytes + (kThreads / kG) * sizeof(Book);
 
+// the model's run-time tables into the block's shared copy
+__device__ __forceinline__ void load_tables() {
+  for (int i = threadIdx.x; i < static_cast<int>(sizeof(Tables) / 4);
+       i += kThreads)
+    reinterpret_cast<int*>(&tables)[i] =
+        reinterpret_cast<const int*>(&kTablesInit)[i];
+  __syncthreads();
+}
+
+// The whole form: a group a sample, every sample all H steps.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                    int per_sample, const float* __restrict__ U,
@@ -1170,12 +1297,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    float* __restrict__ logpd, float* __restrict__ qd_out,
                    int* __restrict__ first_out, int N, int H) {
   extern __shared__ float smem[];
-  // the model's run-time tables into shared memory
-  for (int i = threadIdx.x; i < static_cast<int>(sizeof(Tables) / 4);
-       i += kThreads)
-    reinterpret_cast<int*>(&tables)[i] =
-        reinterpret_cast<const int*>(&kTablesInit)[i];
-  __syncthreads();
+  load_tables();
   const int grp = threadIdx.x / kG, lane = threadIdx.x % kG;
   const int n = blockIdx.x * (kThreads / kG) + grp;
   // the ragged tail: a group past N rolls sample N − 1 out again and
@@ -1186,25 +1308,43 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                      bad_out, qs, xref, logpd, qd_out, first_out, N, H);
 }
 
-// Once per device: the opt-in to dynamic shared memory above 48 KB, and
-// the split of each SM's 256 KB between shared memory and L1: as much
-// shared memory as the blocks that the registers let reside can use, and
-// the rest as L1, which caches the tables' and the spills' traffic; left
-// to the driver, the split is only its own guess.
+// The retiring form (rollout_retiring): the groups of the grid start with
+// samples 0 … gridDim.x · (kThreads / kG) − 1 and take the rest from
+// queue[0]; queue[1] sums the env steps run. The launch zeroes both first.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    rollout_kernel_retire(const float* __restrict__ q0,
+                          const float* __restrict__ qd0, int per_sample,
+                          const float* __restrict__ U,
+                          float* __restrict__ rews,
+                          float* __restrict__ bad_out,
+                          int* __restrict__ first_out,
+                          int* __restrict__ queue, int N, int H) {
+  extern __shared__ float smem[];
+  load_tables();
+  const int grp = threadIdx.x / kG, lane = threadIdx.x % kG;
+  Slice* slices = reinterpret_cast<Slice*>(smem);
+  Book* books = reinterpret_cast<Book*>(slices + kThreads / kG);
+  const Group<kG> g{lane, static_cast<int>(threadIdx.x % 32) - lane};
+  rollout_retiring<kG>(g, slices[grp], books[grp],
+                       blockIdx.x * (kThreads / kG) + grp, q0, qd0,
+                       per_sample, U, rews, bad_out, first_out, queue,
+                       gridDim.x * (kThreads / kG), N, H);
+}
+
+// Once per device, for each form: the opt-in to dynamic shared memory
+// above 48 KB, and the split of each SM's 256 KB between shared memory and
+// L1: as much shared memory as the blocks that the registers let reside
+// can use, and the rest as L1, which caches the tables' and the spills'
+// traffic; left to the driver, the split is only its own guess.
 constexpr int kMaxDevices = 64;
 
-cudaError_t prepare() {
-  static std::atomic<bool> ready[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && ready[dev].load()) return cudaSuccess;
-  e = cudaFuncSetAttribute(rollout_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSharedBytes);
+template <class Kernel>
+cudaError_t prepare_form(Kernel kernel, int shared) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, rollout_kernel);
+  e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return e;
   const int regs = (a.numRegs + 7) / 8 * 8;  // allocated in eights
   int blocks = 65536 / (regs * kThreads);
@@ -1212,14 +1352,71 @@ cudaError_t prepare() {
                                                        : blocks);
   // each block's dynamic and static shared memory and the 1 KB the system
   // reserves per block, in percent of the 228 KB maximum
-  const long need = blocks * (kSharedBytes +
-                              static_cast<long>(a.sharedSizeBytes) + 1024L);
+  const long need =
+      blocks * (shared + static_cast<long>(a.sharedSizeBytes) + 1024L);
   const long pct = (100 * need + 233471) / 233472;
-  e = cudaFuncSetAttribute(rollout_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           static_cast<int>(pct < 100 ? pct : 100));
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              static_cast<int>(pct < 100 ? pct : 100));
+}
+
+// The whole form.
+cudaError_t prepare() {
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && ready[dev].load()) return cudaSuccess;
+  e = prepare_form(rollout_kernel, kSharedBytes);
   if (e == cudaSuccess && dev < kMaxDevices) ready[dev].store(true);
   return e;
+}
+
+// The retiring form, on its first launch or layout, and into *resident
+// its blocks that reside on the card at once (blocks per SM × SMs), its
+// largest grid.
+cudaError_t prepare_retire(int* resident) {
+  static std::atomic<int> ready[kMaxDevices];  // *resident; 0: not yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (*resident = ready[dev].load()) > 0)
+    return cudaSuccess;
+  e = prepare_form(rollout_kernel_retire, kRetireBytes);
+  if (e != cudaSuccess) return e;
+  int blocks = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, rollout_kernel_retire, kThreads, kRetireBytes);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  *resident = blocks * sms > 0 ? blocks * sms : 1;
+  if (dev < kMaxDevices) ready[dev].store(*resident);
+  return cudaSuccess;
+}
+
+// One form's layout at `grid` blocks (mbd_rollout_attrs).
+template <class Kernel>
+cudaError_t layout(Kernel kernel, int shared, int grid, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    kThreads, shared);
+  if (e != cudaSuccess) return e;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int v[8] = {kG,
+                    kThreads,
+                    shared,
+                    attr.numRegs,
+                    static_cast<int>(attr.localSizeBytes),
+                    blocks,
+                    blocks * kThreads / 32,
+                    grid < sms ? grid : sms};
+  for (int k = 0; k < 8; ++k) out[k] = v[k];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1227,47 +1424,50 @@ cudaError_t prepare() {
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). qs, xref,
-// logpd, qd_out and first may be null (see rollout_sample).
+// logpd, qd_out and first may be null (see rollout_sample). With a queue
+// (two ints on the device), the retiring form (rollout_retiring), which
+// takes neither qs, xref, logpd nor qd_out, on at most the blocks that
+// reside at once: the grid of the whole form where that fits, so that only
+// the exit engages, and above it the refill too; queue[1] then holds the
+// env steps the launch ran.
 int mbd_rollout(const float* q0, const float* qd0, int per_sample,
                 const float* U, float* rews, float* bad, float* qs,
                 const float* xref, float* logpd, float* qd_out, int* first,
-                int N, int H, void* stream) {
-  cudaError_t e = prepare();
+                int* queue, int N, int H, void* stream) {
+  const int blocks = (N + kThreads / kG - 1) / (kThreads / kG);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (queue == nullptr) {
+    cudaError_t e = prepare();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rollout_kernel<<<blocks, kThreads, kSharedBytes, st>>>(
+        q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, first, N,
+        H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int resident = 0;
+  cudaError_t e = prepare_retire(&resident);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((N + kThreads / kG - 1) / (kThreads / kG)), block(kThreads);
-  rollout_kernel<<<grid, block, kSharedBytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-      q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, first, N,
-      H);
+  e = cudaMemsetAsync(queue, 0, 2 * sizeof(int), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = blocks < resident ? blocks : resident;
+  rollout_kernel_retire<<<grid, kThreads, kRetireBytes, st>>>(
+      q0, qd0, per_sample, U, rews, bad, first, queue, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The layout of a launch at N samples, into out[8]: G, threads and dynamic
-// shared bytes per block, registers and local bytes per thread, resident
-// blocks and warps per SM, SMs in use.
-int mbd_rollout_attrs(int N, int* out) {
-  cudaError_t e = prepare();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, rollout_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int blocks = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rollout_kernel,
-                                                    kThreads, kSharedBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// The layout of a launch at N samples of the whole form (retire = 0) or
+// the retiring one, into out[8]: G, threads and dynamic shared bytes per
+// block, registers and local bytes per thread, resident blocks and warps
+// per SM, SMs in use.
+int mbd_rollout_attrs(int N, int retire, int* out) {
   const int grid = (N + kThreads / kG - 1) / (kThreads / kG);
-  const int v[8] = {kG,
-                    kThreads,
-                    kSharedBytes,
-                    attr.numRegs,
-                    static_cast<int>(attr.localSizeBytes),
-                    blocks,
-                    blocks * kThreads / 32,
-                    grid < sms ? grid : sms};
-  for (int k = 0; k < 8; ++k) out[k] = v[k];
-  return 0;
+  int resident = 0;
+  cudaError_t e = retire ? prepare_retire(&resident) : prepare();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = retire ? layout(rollout_kernel_retire, kRetireBytes,
+                      grid < resident ? grid : resident, out)
+             : layout(rollout_kernel, kSharedBytes, grid, out);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -14,12 +14,15 @@ the sources and the header, and bound with ``ctypes``.
 
 ``rollout_rewards_cuda`` keeps the signature and layout of
 ``rollout_rewards_pallas``: ``Y0s [N, H, nu]`` in, ``(rews [N, H],
-bad [N][, qs [H, nq, N]][, logpd [N]])`` out. ``env_step_cuda`` is the
-port's fifth mode, state out, with no Pallas counterpart: one env step
-from a per-sample (q, qd), (q', qd', reward, bad), for RL training
-(``rl/batched_env.py``). A CPU tensor takes the plain version
-(``rollout/fused.py::rollout_outputs`` and ``env_step_outputs``, the torch
-engine); a CUDA tensor launches the kernel or raises.
+bad [N][, qs [H, nq, N]][, logpd [N]])`` out; with ``retire`` the
+kernel's retiring form, which ends each sample at its first flag and
+refills its lanes from a launch-wide queue (the planner's reverse step).
+``env_step_cuda`` is the port's fifth mode, state out, with no Pallas
+counterpart: one env step from a per-sample (q, qd), (q', qd', reward,
+bad), for RL training (``rl/batched_env.py``). A CPU tensor takes the
+plain version (``rollout/fused.py::rollout_outputs`` and
+``env_step_outputs``, the torch engine); a CUDA tensor launches the
+kernel or raises.
 
 Coverage: free, slide and hinge joints; plane–sphere, plane–capsule,
 capsule–capsule and sphere–box pairs: every model the port serves
@@ -422,30 +425,36 @@ class Built:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
-        lib.mbd_rollout_attrs.argtypes = [ctypes.c_int,
+        lib.mbd_rollout_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)]
         lib.mbd_rollout_attrs.restype = ctypes.c_int
 
-    def attrs(self, N: int = 2048) -> Dict[str, int]:
-        """The layout of a launch at N samples: G, threads and dynamic
-        shared bytes per block, registers and local bytes per thread,
-        resident blocks and warps per SM, and the SMs the grid occupies."""
+    def attrs(self, N: int = 2048, retire: bool = False) -> Dict[str, int]:
+        """The layout of a launch at N samples, of the whole form or with
+        ``retire`` the retiring one: G, threads and dynamic shared bytes
+        per block, registers and local bytes per thread, resident blocks
+        and warps per SM, and the SMs the grid occupies."""
         out = (ctypes.c_int * len(LAYOUT))()
-        err = self.lib.mbd_rollout_attrs(N, out)
+        err = self.lib.mbd_rollout_attrs(N, int(retire), out)
         if err != 0:
             raise RuntimeError(f"mbd_rollout_attrs failed: error {err}")
         return dict(zip(LAYOUT, out))
 
     def run(self, env, state0, Y0s: torch.Tensor, need_qs: bool = False,
             demo: bool = False, state_out: bool = False,
-            first: bool = False) -> Tuple[torch.Tensor, ...]:
+            first: bool = False, retire: bool = False
+            ) -> Tuple[torch.Tensor, ...]:
         """One launch on CUDA tensors whose shapes ``rollout_rewards_cuda``
         has checked; its outputs in that function's layout, with
-        ``state_out`` the velocities after the last step [nv, N] and with
+        ``state_out`` the velocities after the last step [nv, N], with
         ``first`` each sample's first flagged env step [N] (int32, −1 where
-        none) last."""
+        none) and, of the retiring form (``retire``), its queue [2] last
+        (int32: the samples ended, N once the launch is done, and the env
+        steps it ran)."""
+        check_retire(retire, need_qs, demo, state_out)
         N, H, _ = Y0s.shape
         q0 = state0.pipeline_state.q.contiguous()
         qd0 = state0.pipeline_state.qd.contiguous()
@@ -456,8 +465,9 @@ class Built:
         qs = torch.empty((H, env.sys.nq, N), **f32) if need_qs else None
         logpd = torch.empty((N,), **f32) if demo else None
         qd_out = torch.empty((env.sys.nv, N), **f32) if state_out else None
-        first_out = torch.empty((N,), dtype=torch.int32, device=Y0s.device) \
-            if first else None
+        i32 = dict(dtype=torch.int32, device=Y0s.device)
+        first_out = torch.empty((N,), **i32) if first else None
+        queue = torch.empty((2,), **i32) if retire else None
         xref = env.xref_frames if demo else None       # [H_demo, 5, 3]
 
         def ptr(t):
@@ -468,8 +478,8 @@ class Built:
             err = self.lib.mbd_rollout(
                 q0.data_ptr(), qd0.data_ptr(), int(q0.dim() == 2),
                 U.data_ptr(), rews.data_ptr(), bad.data_ptr(), ptr(qs),
-                ptr(xref), ptr(logpd), ptr(qd_out), ptr(first_out), N, H,
-                stream)
+                ptr(xref), ptr(logpd), ptr(qd_out), ptr(first_out),
+                ptr(queue), N, H, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA rollout kernel launch failed: error {err}")
@@ -482,6 +492,8 @@ class Built:
             out += (qd_out,)
         if first:
             out += (first_out,)
+        if retire:
+            out += (queue,)
         return out
 
 
@@ -553,12 +565,21 @@ def build(env) -> Built:
 # ---------------------------------------------------------------------------
 
 def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
-                         need_qs: bool = False, demo: bool = False
-                         ) -> Tuple[torch.Tensor, ...]:
+                         need_qs: bool = False, demo: bool = False,
+                         retire: bool = False) -> Tuple[torch.Tensor, ...]:
     """Y0s [N, H, nu] → (rews [N, H], bad [N][, qs [H, nq, N]][,
     logpd [N]]), rolled out from ``state0.pipeline_state`` (q [nq] shared
     or [nq, N] per sample); qs with ``need_qs``, the demo log-density
     with ``demo``.
+
+    ``retire`` launches the retiring form: each sample ends at the end of
+    its first flagged env step and its group takes the next sample from a
+    launch-wide queue. The flags and every reward up to and including
+    each sample's first flagged step are the whole form's bit for bit;
+    the rewards after it are a quiet NaN (bits 0x7fffffff, the card's own),
+    which no planner reads. The trace, the demo and the state-out mode
+    read past the flag and refuse it. The plain version rolls out whole
+    and writes the same NaN.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. While the recorder counts (``utils/profiling.py``: under a
@@ -567,11 +588,15 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     sample's first flagged env step (the kernel's ``first`` buffer, or the
     plain version's), the env steps after it: Σ over the flagged samples
     of H − 1 − that step (``rollout.tail_sample_steps``), work no planner
-    reads. The launch is the same kernel either way."""
+    reads. A retiring rollout counts the sample-steps it did not run
+    (``rollout.retired_sample_steps``): on the card N·H less the env steps
+    the kernel counts as it runs them, in the plain version that tail
+    again. The launch is the same kernel whether counted or not."""
     global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES, SAMPLE_STEPS, \
         DEMO_SAMPLE_STEPS
     sys = env.sys
     check_supported(sys)
+    check_retire(retire, need_qs, demo)
     N, H, nu = Y0s.shape
     if demo:
         check_demo(env, H)
@@ -579,7 +604,9 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     if not Y0s.is_cuda:
         SAMPLE_STEPS += N * H
         DEMO_SAMPLE_STEPS += N * H * int(demo)
-        out = rollout_outputs(env, state0, Y0s, need_qs, demo, first)
+        out = rollout_outputs(env, state0, Y0s, need_qs, demo, first, retire)
+        if first and retire:
+            profiling.count("rollout.retired_sample_steps", _tail(out[-1], H))
         return _counted(out, N, H) if first else out
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
@@ -600,24 +627,43 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
             raise ValueError("q0/qd0 must be float32 on the device of Y0s")
     if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
-    out = library(env).run(env, state0, Y0s, need_qs, demo, first=first)
+    out = library(env).run(env, state0, Y0s, need_qs, demo, first=first,
+                           retire=retire)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
     SAMPLE_STEPS += N * H
     DEMO_SAMPLE_STEPS += N * H * int(demo)
+    if retire:
+        queue, out = out[-1], out[:-1]
+        if first:
+            profiling.count("rollout.retired_sample_steps", N * H - queue[1])
     return _counted(out, N, H) if first else out
+
+
+def check_retire(retire: bool, need_qs: bool, demo: bool,
+                 state_out: bool = False) -> None:
+    """Raise ValueError where the retiring form is asked for with an output
+    that is read past a sample's first flag."""
+    if retire and (need_qs or demo or state_out):
+        raise ValueError("the retiring form ends each sample at its first "
+                         "flag: the trace (need_qs), the demo and the "
+                         "state-out mode read past it")
+
+
+def _tail(first: torch.Tensor, H: int) -> torch.Tensor:
+    """Σ over the flagged samples of H − 1 − their first flagged env step
+    (``first``, −1 where none), on the device."""
+    return torch.where(first >= 0, (H - 1) - first, 0).sum()
 
 
 def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int
              ) -> Tuple[torch.Tensor, ...]:
     """Counts a rollout's sample-steps and its samples' env steps after
-    their first flag (the last of ``out``, −1 where none) with the
-    recorder, on the device; the outputs without the first flags."""
-    first = out[-1]
+    their first flag (the last of ``out``) with the recorder, on the
+    device; the outputs without the first flags."""
     profiling.count("rollout.sample_steps", N * H)
-    profiling.count("rollout.tail_sample_steps", torch.where(
-        first >= 0, (H - 1) - first, 0).sum())
+    profiling.count("rollout.tail_sample_steps", _tail(out[-1], H))
     return out[:-1]
 
 

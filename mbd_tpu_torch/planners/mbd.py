@@ -17,6 +17,11 @@ Per reverse step i, from Ndiffuse−1 down to 1:
 Samples flagged by the engine's validity envelope (or with a non-finite
 reward) are demoted to the worst valid reward for the statistics and get
 zero weight; when every sample is flagged the weights fall back to uniform.
+So no reward of a flagged sample is read, and without the demo the reverse
+step asks the kernel to retire each sample at its first flag
+(``rollout_rewards_cuda(..., retire=True)``). The final selection, whose
+reported reward may be a flagged plan's, and the demo, which reads flagged
+samples' log-densities, roll out whole.
 
 Demo conditioning (``enable_demo``, reference mbd_planner.py:117-125, and
 ``docs/DEMO_CONDITIONING.md``): each rollout's demo-tracking log-density,
@@ -166,7 +171,7 @@ def make_reverse_once_batch(env, cfg: MBDConfig, states_init,
         with span("mbd.rollout"):
             out = sharded_rollout(env, state0, Y0s.reshape(
                 (S * N,) + Y0s.shape[2:]), lo, hi, mesh,
-                demo=cfg.enable_demo)
+                demo=cfg.enable_demo, retire=not cfg.enable_demo)
         with span("mbd.weigh"):
             Ybar, rew = per_seed(weigh, out[0].reshape(S, N, -1),
                                  out[1].reshape(S, N), Y0s,
@@ -253,7 +258,7 @@ def shard_samples(env, states_init, N: int, mesh):
 
 
 def sharded_rollout(env, state0, Y0s: torch.Tensor, lo: int, hi: int,
-                    mesh, demo: bool = False):
+                    mesh, demo: bool = False, retire: bool = False):
     """``rollout_batch`` of the samples [lo, hi) of Y0s [n, H, nu] from
     their initial states ``state0`` (``shard_states``'s), each output
     then gathered to all n samples on every rank; without ``mesh``, the
@@ -262,7 +267,7 @@ def sharded_rollout(env, state0, Y0s: torch.Tensor, lo: int, hi: int,
     memory as the rollout gave them (the transpose of an [H, n] tensor
     from the kernel and the plain engine), so that their mean over H sums
     in the same order as in one process."""
-    out = rollout_batch(env, state0, Y0s[lo:hi], demo=demo)
+    out = rollout_batch(env, state0, Y0s[lo:hi], demo=demo, retire=retire)
     if mesh is None:
         return out
     rews, H = out[0], out[0].shape[1]
@@ -274,14 +279,18 @@ def sharded_rollout(env, state0, Y0s: torch.Tensor, lo: int, hi: int,
                            for k in range(len(out) - 1))
 
 
-def rollout_batch(env, state0, Y0s: torch.Tensor, demo: bool = False):
+def rollout_batch(env, state0, Y0s: torch.Tensor, demo: bool = False,
+                  retire: bool = False):
     """Y0s [N, H, nu] from ``batch_states``'s initial states → (rews [N, H],
     bad [N][, logpd [N]]). A physics env: the CUDA kernel (the torch
-    engine on the CPU). An analytic env: its step on the whole batch
-    (JAX's vmap engine, mbd_tpu/planners/mbd.py:388-395), no flag, and the
-    demo log-density from ``env.eval_xref_logpd`` over the states."""
+    engine on the CPU), with ``retire`` its retiring form, whose rewards
+    after a sample's first flag are NaN. An analytic env: its step on the
+    whole batch (JAX's vmap engine, mbd_tpu/planners/mbd.py:388-395), no
+    flag, and the demo log-density from ``env.eval_xref_logpd`` over the
+    states."""
     if isinstance(env, PhysicsEnv):
-        return rollout_rewards_cuda(env, state0, Y0s, demo=demo)
+        return rollout_rewards_cuda(env, state0, Y0s, demo=demo,
+                                    retire=retire)
     rews, xs = rollout_us(env, state0, Y0s)
     out = (rews, torch.zeros_like(rews[:, 0]))
     return out + (env.eval_xref_logpd(xs),) if demo else out

@@ -21,6 +21,10 @@ from ..sim import batched as BT
 # Calls of rollout_rewards on CUDA tensors. The planner's path on the card
 # goes through the kernel, so a run can show this stayed 0.
 CUDA_CALLS = 0
+# The bits of the rewards a retiring rollout leaves unrun: the quiet NaN
+# that the card's float arithmetic gives, so that the mesh's exact gather
+# (a sum with −0.0) keeps them as they are.
+RETIRED_BITS = 0x7FFFFFFF
 
 
 def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
@@ -117,17 +121,27 @@ def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
 
 
 def rollout_outputs(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
-                    demo: bool = False, first: bool = False
-                    ) -> Tuple[torch.Tensor, ...]:
+                    demo: bool = False, first: bool = False,
+                    retire: bool = False) -> Tuple[torch.Tensor, ...]:
     """The plain version of the CUDA rollout kernel: Y0s [N, H, nu] →
     (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]][, first [N]]), in
     the order of ``rollout_rewards_pallas``, with ``first`` (the kernel's
     first-flag buffer) each sample's first flagged env step last
     (``rollout_qs``). The demo log-density is scored from the position
     trace, as JAX's fused engine scores it
-    (``mbd_tpu/planners/mbd.py:179-188``)."""
+    (``mbd_tpu/planners/mbd.py:179-188``). With ``retire``, the kernel's
+    retiring form: rolled out whole, then every reward after a sample's
+    first flagged env step replaced by the NaN of bits ``RETIRED_BITS``."""
     rews, qs, bad, *first_flag = rollout_rewards(env, state0, Y0s,
-                                                 need_qs or demo, first)
+                                                 need_qs or demo,
+                                                 first or retire)
+    if retire:
+        after = torch.arange(rews.shape[1], device=rews.device) > \
+            first_flag[0][:, None]
+        # in place, so that the rewards keep the layout of the whole form's
+        rews.view(torch.int32).masked_fill_(
+            after & (first_flag[0] >= 0)[:, None], RETIRED_BITS)
+        first_flag = first_flag if first else []
     out = (rews, bad)
     if need_qs:
         out += (qs,)

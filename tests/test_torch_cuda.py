@@ -416,3 +416,69 @@ def test_counting_form_leaves_rewards_and_flags(card, name):
     for a, b in zip(plain, counted):
         assert torch.equal(a.contiguous().view(torch.int32),
                            b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,N", [("humanoidrun", 1024),
+                                    ("humanoidrun", 8192), ("hopper", 16384)])
+def test_retiring_form_matches_whole_form(card, name, N):
+    """The retiring form against the whole form and against the plain
+    version's ``retire`` output: flags and first flags equal; each
+    sample's rewards up to and including its first flagged step, and
+    every reward of a clean sample, bit for bit; the rest the NaN of bits
+    0x7fffffff; every sample asked the queue once, and the kernel ran
+    each sample's steps up to its first flag, all H of a clean one. The
+    samples past those that reside at once are refills: none for
+    humanoidrun at 1 024 (the whole form's grid), some at 8 192 and for
+    hopper at 16 384. Counted, the retired sample-steps are the tail."""
+    from mbd_tpu_torch.utils import profiling
+
+    env, state0, Y0s = _first_flag_case(card, name, N)
+    H = Y0s.shape[1]
+    built = rollout_cuda.library(env)
+    rews, bad, first = built.run(env, state0, Y0s, first=True)
+    rews_r, bad_r, first_r, queue = built.run(env, state0, Y0s, first=True,
+                                              retire=True)
+    plain = rollout_outputs(env, state0, Y0s, first=True, retire=True)
+    torch.cuda.synchronize()
+    ran = int(torch.where(first >= 0, first + 1, H).sum())
+    assert queue.tolist() == [N, ran]
+    assert torch.equal(bad_r, bad) and torch.equal(first_r, first)
+    assert bool((first >= 0).any())
+    after = (torch.arange(H, device=card)[None] > first[:, None]) & \
+        (first >= 0)[:, None]
+    bits, bits_r = (r.contiguous().view(torch.int32) for r in (rews, rews_r))
+    assert torch.equal(bits_r[~after], bits[~after])
+    assert bool((bits_r[after] == 0x7FFFFFFF).all())
+    assert torch.equal(plain[0].contiguous().view(torch.int32), bits_r)
+    assert torch.equal(plain[1], bad_r) and torch.equal(plain[2], first_r)
+    a = built.attrs(N, retire=True)
+    resident = a["blocks_per_sm"] * a["threads_per_block"] // a["G"] * \
+        torch.cuda.get_device_properties(card).multi_processor_count
+    assert (N > resident) == ((name, N) != ("humanoidrun", 1024))
+    profiling.clear()
+    with profiling.recording(counters=True):
+        rollout_cuda.rollout_rewards_cuda(env, state0, Y0s, retire=True)
+    counts = profiling.recorded().counts[0]
+    profiling.clear()
+    tail = int(((H - 1) - first[first >= 0]).sum())
+    assert counts == {"rollout.sample_steps": N * H,
+                      "rollout.tail_sample_steps": tail,
+                      "rollout.retired_sample_steps": tail}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,blocks", [("humanoidrun", 4), ("hopper", 5)])
+def test_retiring_form_keeps_residency(card, name, blocks):
+    """The retiring form resides as the whole form does: 4 blocks an SM
+    on humanoidrun, 5 on hopper; its grid stops at the blocks that reside
+    at once."""
+    env = envs.get_env(name, device=card)
+    built = rollout_cuda.library(env)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for N in (1024, 65536):
+        whole, retire = built.attrs(N), built.attrs(N, retire=True)
+        assert whole["blocks_per_sm"] == retire["blocks_per_sm"] == blocks
+        assert retire["shared_bytes"] > whole["shared_bytes"]
+        assert retire["sms_used"] == whole["sms_used"] == min(
+            sms, -(-N // (whole["threads_per_block"] // whole["G"])))

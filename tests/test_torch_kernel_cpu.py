@@ -50,6 +50,12 @@ version takes the C library's sqrtf, sinf and cosf (``libm_math``), as the
 card's plain version takes the card's, and the rewards and trace are held
 bit for bit.
 
+The retiring form (``rollout_retiring``) runs on the card's humanoid states
+with fewer warps resident than its samples need, side by side, each
+warp's groups taking samples from one queue (``atomicAdd`` as a
+``__atomic_fetch_add``), and is held against the whole form and the
+plain version's ``retire`` output.
+
 Skips where g++ is missing.
 """
 
@@ -74,6 +80,7 @@ SHIM = """
 #include <barrier>
 #include <cmath>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -82,6 +89,14 @@ SHIM = """
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
 """
 # A warp's 32 lanes as threads: one barrier for __syncwarp, and shared
 # words for __shfl_sync (one per group), __ballot_sync and
@@ -152,6 +167,39 @@ extern "C" void cpu_rollout(const float* q0, const float* qd0,
     for (auto& t : lanes) t.join();
   }
 }
+// The retiring form with `warps` warps resident at once, all running side
+// by side: their groups start with samples 0 … warps · 32/kG − 1 and take
+// the rest from queue[0] (queue[1]: the env steps run), each warp leaving
+// when its groups find it empty.
+extern "C" void cpu_rollout_retire(const float* q0, const float* qd0,
+                                   int per_sample, const float* U,
+                                   float* rews, float* bad, int* first,
+                                   int* queue, int N, int H, int warps) {
+  std::memcpy(&tables, &kTablesInit, sizeof(Tables));
+  constexpr int W = 32 / kG;
+  std::vector<Slice> slice(warps * W);
+  std::vector<Book> book(warps * W);
+  std::memset(slice.data(), 0xff, warps * W * sizeof(Slice));
+  std::memset(book.data(), 0xff, warps * W * sizeof(Book));
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  for (int w = 0; w < warps; ++w)
+    bars.push_back(std::make_unique<std::barrier<>>(32));
+  std::vector<float> words(warps * W);
+  std::vector<unsigned> bits(warps * 32);
+  std::vector<int> ints(warps * 32);
+  queue[0] = queue[1] = 0;
+  std::vector<std::thread> lanes;
+  for (int t = 0; t < 32 * warps; ++t)
+    lanes.emplace_back([&, t] {
+      const int w = t / 32, l = t % 32, grp = w * W + l / kG;
+      const Group<kG> g{l % kG, l - l % kG, bars[w].get(), &words[w * W],
+                        &bits[w * 32], &ints[w * 32]};
+      rollout_retiring<kG>(g, slice[grp], book[grp], grp, q0, qd0,
+                           per_sample, U, rews, bad, first, queue, warps * W,
+                           N, H);
+    });
+  for (auto& t : lanes) t.join();
+}
 """
 ATOL = 2e-6
 N = 130
@@ -181,6 +229,9 @@ def _cpu_kernel(env, out_dir, G):
     lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     lib.cpu_rollout.restype = None
+    lib.cpu_rollout_retire.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib.cpu_rollout_retire.restype = None
     return lib
 
 
@@ -471,25 +522,33 @@ def test_kernel_source_state_out(name, tmp_path, libm_math):
     assert float(kernel[3].abs().max()) > 0
 
 
+def _flag_fixture(H=3):
+    """humanoidrun one substep an env step, and the card's humanoid states
+    (``assets/humanoid_flags.npz``) with their recorded controls first and
+    uniform ones after: (env, fixture, q0 [nq, n], qd0 [nv, n],
+    U [H, nu, n])."""
+    import torch_flag_check as F
+
+    env = envs.get_env("humanoidrun", device="cpu")
+    env.n_frames = 1
+    d = F.fixture("humanoidrun")
+    q0 = torch.from_numpy(np.ascontiguousarray(d["q"].T))
+    qd0 = torch.from_numpy(np.ascontiguousarray(d["qd"].T))
+    U = torch.rand((H, env.action_size, q0.shape[1]),
+                   generator=torch.Generator().manual_seed(0)) * 2 - 1
+    U[0] = torch.from_numpy(d["u"].T)
+    return env, d, q0, qd0, U.contiguous()
+
+
 def test_kernel_source_first_flag(tmp_path):
     """The kernel's first-flag buffer on the card's humanoidrun states
     (``assets/humanoid_flags.npz``), one substep an env step over 3 steps:
     each sample's first flagged env step is the plain version's
     (``rollout_qs``), its flagged states at step 0, and the rewards and
     flags are those of the launch without the buffer, bit for bit."""
-    import torch_flag_check as F
-
-    env = envs.get_env("humanoidrun", device="cpu")
-    env.n_frames = 1
+    env, d, q0, qd0, U = _flag_fixture()
     lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
-    d = F.fixture("humanoidrun")
-    q0 = torch.from_numpy(np.ascontiguousarray(d["q"].T))
-    qd0 = torch.from_numpy(np.ascontiguousarray(d["qd"].T))
-    n, H = q0.shape[1], 3
-    U = torch.rand((H, env.action_size, n),
-                   generator=torch.Generator().manual_seed(0)) * 2 - 1
-    U[0] = torch.from_numpy(d["u"].T)
-    U = U.contiguous()
+    n, H = q0.shape[1], U.shape[0]
     outs = []
     for first in (None, torch.empty(n, dtype=torch.int32)):
         rews, bad = torch.empty((H, n)), torch.empty(n)
@@ -506,3 +565,46 @@ def test_kernel_source_first_flag(tmp_path):
     assert torch.equal(first[torch.from_numpy(d["flagged"])],
                        torch.zeros(int(d["flagged"].sum()),
                                    dtype=torch.int32))
+
+
+def test_kernel_source_retiring_form(tmp_path, libm_math):
+    """The retiring form (``rollout_retiring``) on the fixture's states,
+    one substep an env step over 4 steps, with 2 warps resident (4 groups
+    of 16 lanes) for 32 samples, so that groups take most samples from the
+    queue, the flagged ones ending at step 0: flags and first flags are
+    the whole form's; each sample's rewards up to and including its first
+    flagged step, and every reward of a clean sample, are the whole
+    form's bit for bit; the rest are the NaN of bits 0x7fffffff; every
+    sample asked the queue once, and the kernel counted the steps it ran,
+    each sample's up to its first flag; and all of it is the plain version's
+    ``retire`` output (under ``libm_math``, for the hinges' angles)."""
+    env, d, q0, qd0, U = _flag_fixture(H=4)
+    lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
+    n, H = q0.shape[1], U.shape[0]
+    warps = 2
+    assert warps * 32 // env.kernel_group < n
+    rews, bad = torch.empty((H, n)), torch.empty(n)
+    first = torch.empty(n, dtype=torch.int32)
+    lib.cpu_rollout(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
+                    rews.data_ptr(), bad.data_ptr(), None, None, None, None,
+                    first.data_ptr(), n, H)
+    rews_r, bad_r = torch.full((H, n), 7.0), torch.empty(n)
+    first_r, queue = (torch.empty(k, dtype=torch.int32) for k in (n, 2))
+    lib.cpu_rollout_retire(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
+                           rews_r.data_ptr(), bad_r.data_ptr(),
+                           first_r.data_ptr(), queue.data_ptr(), n, H, warps)
+    assert queue.tolist() == [n, int(torch.where(first >= 0, first + 1,
+                                                 H).sum())]
+    assert torch.equal(bad_r, bad) and torch.equal(first_r, first)
+    assert bool((first == 0).any()) and bool((first < 0).any())
+    flagged = torch.from_numpy(d["flagged"])
+    assert bool((first[flagged] == 0).all())
+    after = (torch.arange(H)[:, None] > first[None]) & (first >= 0)[None]
+    bits, bits_r = rews.view(torch.int32), rews_r.view(torch.int32)
+    assert torch.equal(bits_r[~after], bits[~after])
+    assert bool((bits_r[after] == 0x7FFFFFFF).all()) and bool(after.any())
+    state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
+    plain = rollout_outputs(env, state, U.permute(2, 0, 1).contiguous(),
+                            first=True, retire=True)
+    assert torch.equal(plain[0].view(torch.int32), bits_r.t())
+    assert torch.equal(plain[1], bad_r) and torch.equal(plain[2], first_r)

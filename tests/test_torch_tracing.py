@@ -34,7 +34,7 @@ def _plan():
     return mbd.plan_batch(env, mbd.MBDConfig(**R.TRACE_CFG), gens)
 
 
-def _stand_in(env, state0, Y0s, demo=False):
+def _stand_in(env, state0, Y0s, demo=False, retire=False):
     """A rollout of few host operations in the plain engine's place:
     under a profiler the engine's millions of operations would each be an
     event."""
@@ -178,12 +178,13 @@ def test_plan_is_the_same_recorded_or_not(plans):
 
 def test_plan_counts_its_sample_steps_and_tail(plans):
     """The rollout's counters over the plan: T launches of S·N samples
-    and the final selection's S·T, H steps each; hopper at these sizes
-    flags nothing."""
+    and the final selection's S·T, H steps each, the T retiring; hopper
+    at these sizes flags nothing, so nothing is retired."""
     rec = plans[2]
     S, N, H = 2, R.TRACE_CFG["Nsample"], R.TRACE_CFG["Hsample"]
     assert rec.counts == {0: {"rollout.sample_steps": (T * S * N + S * T)
-                              * H, "rollout.tail_sample_steps": 0}}
+                              * H, "rollout.tail_sample_steps": 0,
+                              "rollout.retired_sample_steps": 0}}
 
 
 def test_ranks_hand_back_their_records():
@@ -304,3 +305,63 @@ def test_plain_first_flag_of_whole_env_steps():
     tail = int(((H - 1) - first[first >= 0]).sum())
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps": tail}
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_plan_is_the_same_retired_or_whole(k, monkeypatch):
+    """A small humanoidrun plan (16 samples, H 4, 3 reverse steps, one
+    substep an env step) from the fixture's flagged state k: its reverse
+    steps ask for retiring rollouts and the final selection for a whole
+    one; samples flag (k = 1: some, from step 1 on; k = 2: all, at step
+    0), and the plan's iterates, rewards and final reward are bit for bit
+    those of the plan whose rollouts all run whole, so no reader of a
+    flagged sample's rewards is left. Counted, the retired sample-steps
+    are the NaN rewards of the retiring rollouts."""
+    env = envs.get_env("humanoidrun", device="cpu")
+    env.n_frames = 1
+    d = F.fixture("humanoidrun")
+    assert d["flagged"][k]
+    state = SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=torch.from_numpy(d["q"][k]), qd=torch.from_numpy(d["qd"][k])))
+    cfg = mbd.MBDConfig(Nsample=16, Hsample=4, Ndiffuse=4)
+    real = mbd.rollout_rewards_cuda
+    calls = []
+
+    def spy(env, state0, Y0s, demo=False, retire=False):
+        out = real(env, state0, Y0s, demo=demo, retire=retire and honour)
+        calls.append((retire, int(out[1].sum()),
+                      int(torch.isnan(out[0]).sum())))
+        return out
+
+    monkeypatch.setattr(mbd, "rollout_rewards_cuda", spy)
+    results, counts = [], []
+    for honour in (True, False):
+        profiling.clear()
+        with profiling.recording(counters=True):
+            results.append(mbd.plan(env, cfg, torch.Generator().manual_seed(0),
+                                    state_init=state))
+        counts.append(profiling.recorded().counts[0])
+    profiling.clear()
+    steps = cfg.Ndiffuse - 1
+    retired, whole = calls[:steps + 1], calls[steps + 1:]
+    assert [c[0] for c in retired] == [True] * steps + [False]
+    assert sum(c[1] for c in retired[:steps]) > 0
+    nans = sum(c[2] for c in retired)
+    assert nans > 0 and all(c[2] == 0 for c in whole)
+    assert counts[0]["rollout.retired_sample_steps"] == nans
+    assert "rollout.retired_sample_steps" not in counts[1]
+    for field in R.PLAN_FIELDS:
+        a, b = (torch.as_tensor(getattr(r, field)) for r in results)
+        assert torch.equal(a, b), field
+
+
+def test_wrapper_refuses_retire_past_the_flag():
+    """The retiring form with the trace or the demo, which read past a
+    sample's first flag, is refused before anything runs."""
+    env = envs.get_env("humanoidtrack", device="cpu")
+    state0 = env.reset(torch.Generator().manual_seed(0))
+    Y = torch.zeros((4, 2, env.action_size))
+    for kw in (dict(need_qs=True), dict(demo=True)):
+        with pytest.raises(ValueError, match="first flag"):
+            rollout_cuda.rollout_rewards_cuda(env, state0, Y, retire=True,
+                                              **kw)
