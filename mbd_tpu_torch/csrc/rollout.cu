@@ -14,8 +14,10 @@
 // (mbd_tpu_torch/rl/batched_env.py; JAX takes that step with XLA outside
 // Pallas, mbd_tpu/rl/batched_env.py:83-86). Where the caller passes a
 // buffer first[N], the launch also writes each sample's first flagged env
-// step into it (the recorder's tail count, utils/profiling.py). The
-// retiring form (below) stops each sample at its first flag.
+// step into it (the recorder's tail count, utils/profiling.py), and where
+// it passes rows[N], each sample's contact-row substeps that acted while it
+// was live (below). The retiring form (below) stops each sample at its
+// first flag.
 //
 // What bounds it on this card: latency, not bytes. A substep of one sample
 // is a few thousand dependent float operations (tens of thousands on the
@@ -64,7 +66,11 @@
 // order, then limits), go to the lanes in turn; each lane keeps the M⁻¹Jᵀ
 // of its rows in registers (⌈NC/G⌉ slots), and in the sweep the lane that
 // holds a row sums its M⁻¹Jᵀ·rhs in dof order, broadcasts the force step,
-// and the lanes update the right-hand side by dof.
+// and the lanes update the right-hand side by dof. Counted (rows passed),
+// lane 0 adds after each substep the contact rows whose cap is not 0 to
+// its slice's count, in the env steps that start with the sample unflagged,
+// as benchmark/reference/engine.py's Recorder counts them: shared memory,
+// read and written only then, so that the substep holds no register more.
 //
 // The model arrives as a generated header ("model.h", see
 // ops/rollout_cuda.py) of sizes and tables, each with a constexpr accessor
@@ -377,11 +383,19 @@ struct Work {
   float vn[kNC1], vbias[kNC1], cap[kNC1];
   int act[kNC1];
 };
-// The working set in an odd number of words, so that the groups of a
-// warp, reading the same field, fall on different banks.
-struct Slice : Work {
-  float pad[(sizeof(Work) / 4) % 2 == 0 ? 1 : 2];
+// The working set and the sample's acting contact-row substeps so far
+// (read and written in counted launches only), in an odd number of words,
+// so that the groups of a warp, reading the same field, fall on different
+// banks. The count takes a word that the padding took before it, so every
+// model's slice keeps its size.
+struct Counted : Work {
+  int rows;
 };
+struct Padded : Counted {
+  float pad;
+};
+using Slice =
+    std::conditional_t<(sizeof(Counted) / 4) % 2 == 1, Counted, Padded>;
 
 // --- begin group ---
 // The G lanes of one sample: lanes base … base + G − 1 of a warp. Every
@@ -1038,8 +1052,9 @@ __device__ void track_cost(Work& s, const float* xref_t, float& acc) {
 #endif
 
 // Sample n's initial state into the slice (lane 0): q0 [NQ] and qd0 [NV]
-// shared by every sample, or q0 [NQ, N] and qd0 [NV, N] per sample.
-__device__ __forceinline__ void load_state(Work& s,
+// shared by every sample, or q0 [NQ, N] and qd0 [NV, N] per sample; its
+// count of acting contact-row substeps from 0.
+__device__ __forceinline__ void load_state(Slice& s,
                                            const float* __restrict__ q0,
                                            const float* __restrict__ qd0,
                                            int per_sample, int n, int N) {
@@ -1048,6 +1063,7 @@ __device__ __forceinline__ void load_state(Work& s,
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     s.qd[i] = per_sample ? qd0[i * N + n] : qd0[i];
+  s.rows = 0;
 }
 
 // Env step t's controls of sample n into the slice, and what the reward
@@ -1068,14 +1084,24 @@ __device__ __forceinline__ void begin_step(Work& s,
 }
 
 // One env step's NFRAMES substeps by the group, each followed on lane 0 by
-// the validity checks, whose flag rises and stays, and the velocity clamp.
+// the validity checks, whose flag rises and stays, and the velocity clamp;
+// with `count`, first by the count of the substep's acting contact rows
+// while the step started unflagged: bad is then 0 or, from a check of this
+// step, 1 (a flag of an earlier step is 1 in the retiring form, which ends
+// the sample there, and t + 2 ≥ 2 in the whole form).
 template <int G>
 __device__ __forceinline__ void physics_step(const Group<G>& g, Slice& s,
-                                             float& bad) {
+                                             float& bad, bool count) {
 #pragma unroll 1
   for (int f = 0; f < NFRAMES; ++f) {
     substep<G>(g, s);
     if (g.lane == 0) {
+      if (count && bad < 2.0f) {
+        int acting = s.rows;
+#pragma unroll
+        for (int c = 0; c < NCON; ++c) acting += !(s.cap[c] == 0.0f);
+        s.rows = acting;
+      }
       // validity: NaN-propagating max|qd|, then the root-height sensors
       float* qd = s.qd;
       float speed = fabsf(qd[0]);
@@ -1142,8 +1168,10 @@ __device__ __forceinline__ float step_reward(const Work& s, float x_prev,
 // against xref [H_demo, NTRACK, 3]) and qd_out [NV, N] (the velocities
 // after the last step, clamped as every substep clamps them: with qs at
 // H = 1, the state-out mode, one env step of RL training) are written
-// only when their pointers are not null, and so is first_out [N], the env
-// step at whose end the sample's flag first rose (−1: never). That step is
+// only when their pointers are not null, and so are first_out [N], the env
+// step at whose end the sample's flag first rose (−1: never), and rows_out
+// [N], the contact-row substeps that acted in the env steps that started
+// with the sample unflagged (physics_step). That step is
 // carried in the flag itself so that it holds no register of its own: the
 // flag is 0 or 1 (every check gives one of them), and at the end of env
 // step t a flag of 1 becomes t + 2, which the checks' max leaves as it is.
@@ -1159,13 +1187,14 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
                                const float* __restrict__ xref,
                                float* __restrict__ logpd,
                                float* __restrict__ qd_out,
-                               int* __restrict__ first_out, int N, int H) {
+                               int* __restrict__ first_out,
+                               int* __restrict__ rows_out, int N, int H) {
   float bad = 0.0f, acc = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
   if (g.lane == 0) load_state(s, q0, qd0, per_sample, n, N);
 #pragma unroll 1
   for (int t = 0; t < H; ++t) {
     if (g.lane == 0) begin_step(s, U, t, n, N, x_prev, r_pre);
-    physics_step<G>(g, s, bad);
+    physics_step<G>(g, s, bad, rows_out != nullptr);
     if (g.lane != 0) continue;
     if (bad == 1.0f) bad = static_cast<float>(t + 2);
     const float r = step_reward(s, x_prev, r_pre);
@@ -1183,6 +1212,7 @@ __device__ void rollout_sample(const Group<G>& g, Slice& s, int n,
   bad_out[n] = bad != 0.0f ? 1.0f : 0.0f;
   if (first_out != nullptr)
     first_out[n] = bad != 0.0f ? static_cast<int>(bad) - 2 : -1;
+  if (rows_out != nullptr) rows_out[n] = s.rows;
   if (qd_out != nullptr) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) qd_out[i * N + n] = s.qd[i];
@@ -1203,14 +1233,14 @@ struct Book {
 
 // The retiring form: the group starts with sample n and ends each sample
 // at the end of its first flagged env step, or of step H − 1. The sample's
-// rewards up to that step, its flag and first_out [N] (where not null) are
-// the whole form's; its rewards after it are a quiet NaN of fixed bits,
-// which no planner reads (they read no flagged sample's rewards). Lane 0
-// adds the env steps it ran, t + 1, to queue[1], takes the next sample
-// from the launch-wide queue, started + one atomicAdd on queue[0], and
-// starts it at t = 0 from its initial state: the slice carries only q, qd
-// and u from one substep to the next,
-// and load_state and begin_step set all three. A group that finds the
+// rewards up to that step, its flag, first_out [N] and rows_out [N] (where
+// not null) are the whole form's; its rewards after it are a quiet NaN of
+// fixed bits, which no planner reads (they read no flagged sample's
+// rewards). Lane 0 adds the env steps it ran, t + 1, to queue[1], takes
+// the next sample from the launch-wide queue, started + one atomicAdd on
+// queue[0], and starts it at t = 0 from its initial state: the slice
+// carries only q, qd and u from one substep to the next (and the count,
+// rows), and load_state and begin_step set them all. A group that finds the
 // queue empty replays sample N − 1 from its start and writes nothing, so
 // that its lanes keep taking the warp's barriers; the warp leaves once
 // none of its groups holds a sample.
@@ -1223,6 +1253,7 @@ __device__ void rollout_retiring(const Group<G>& g, Slice& s, Book& b, int n,
                                  float* __restrict__ rews,
                                  float* __restrict__ bad_out,
                                  int* __restrict__ first_out,
+                                 int* __restrict__ rows_out,
                                  int* __restrict__ queue, int started, int N,
                                  int H) {
   float bad = 0.0f, x_prev = 0.0f, r_pre = 0.0f;
@@ -1235,7 +1266,7 @@ __device__ void rollout_retiring(const Group<G>& g, Slice& s, Book& b, int n,
   for (;;) {
     if (g.lane == 0) begin_step(s, U, b.t, b.n < 0 ? N - 1 : b.n, N, x_prev,
                                 r_pre);
-    physics_step<G>(g, s, bad);
+    physics_step<G>(g, s, bad, rows_out != nullptr);
     int held = 0;
     if (g.lane == 0) {
       const int m = b.n, t = b.t;
@@ -1246,6 +1277,7 @@ __device__ void rollout_retiring(const Group<G>& g, Slice& s, Book& b, int n,
         if (m >= 0) {
           bad_out[m] = bad != 0.0f ? 1.0f : 0.0f;
           if (first_out != nullptr) first_out[m] = bad != 0.0f ? t : -1;
+          if (rows_out != nullptr) rows_out[m] = s.rows;
           for (int k = t + 1; k < H; ++k)
             rews[k * N + m] = __int_as_float(0x7fffffff);
           atomicAdd(queue + 1, t + 1);
@@ -1295,7 +1327,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    float* __restrict__ rews, float* __restrict__ bad_out,
                    float* __restrict__ qs, const float* __restrict__ xref,
                    float* __restrict__ logpd, float* __restrict__ qd_out,
-                   int* __restrict__ first_out, int N, int H) {
+                   int* __restrict__ first_out, int* __restrict__ rows_out,
+                   int N, int H) {
   extern __shared__ float smem[];
   load_tables();
   const int grp = threadIdx.x / kG, lane = threadIdx.x % kG;
@@ -1305,7 +1338,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Group<kG> g{lane, static_cast<int>(threadIdx.x % 32) - lane};
   rollout_sample<kG>(g, reinterpret_cast<Slice*>(smem)[grp],
                      n < N ? n : N - 1, n < N, q0, qd0, per_sample, U, rews,
-                     bad_out, qs, xref, logpd, qd_out, first_out, N, H);
+                     bad_out, qs, xref, logpd, qd_out, first_out, rows_out,
+                     N, H);
 }
 
 // The retiring form (rollout_retiring): the groups of the grid start with
@@ -1318,6 +1352,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           float* __restrict__ rews,
                           float* __restrict__ bad_out,
                           int* __restrict__ first_out,
+                          int* __restrict__ rows_out,
                           int* __restrict__ queue, int N, int H) {
   extern __shared__ float smem[];
   load_tables();
@@ -1327,8 +1362,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Group<kG> g{lane, static_cast<int>(threadIdx.x % 32) - lane};
   rollout_retiring<kG>(g, slices[grp], books[grp],
                        blockIdx.x * (kThreads / kG) + grp, q0, qd0,
-                       per_sample, U, rews, bad_out, first_out, queue,
-                       gridDim.x * (kThreads / kG), N, H);
+                       per_sample, U, rews, bad_out, first_out, rows_out,
+                       queue, gridDim.x * (kThreads / kG), N, H);
 }
 
 // Once per device, for each form: the opt-in to dynamic shared memory
@@ -1424,8 +1459,8 @@ cudaError_t layout(Kernel kernel, int shared, int grid, int* out) {
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). qs, xref,
-// logpd, qd_out and first may be null (see rollout_sample). With a queue
-// (two ints on the device), the retiring form (rollout_retiring), which
+// logpd, qd_out, first and rows may be null (see rollout_sample). With a
+// queue (two ints on the device), the retiring form (rollout_retiring), which
 // takes neither qs, xref, logpd nor qd_out, on at most the blocks that
 // reside at once: the grid of the whole form where that fits, so that only
 // the exit engages, and above it the refill too; queue[1] then holds the
@@ -1433,15 +1468,15 @@ extern "C" {
 int mbd_rollout(const float* q0, const float* qd0, int per_sample,
                 const float* U, float* rews, float* bad, float* qs,
                 const float* xref, float* logpd, float* qd_out, int* first,
-                int* queue, int N, int H, void* stream) {
+                int* rows, int* queue, int N, int H, void* stream) {
   const int blocks = (N + kThreads / kG - 1) / (kThreads / kG);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (queue == nullptr) {
     cudaError_t e = prepare();
     if (e != cudaSuccess) return static_cast<int>(e);
     rollout_kernel<<<blocks, kThreads, kSharedBytes, st>>>(
-        q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, first, N,
-        H);
+        q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out, first,
+        rows, N, H);
     return static_cast<int>(cudaGetLastError());
   }
   int resident = 0;
@@ -1451,7 +1486,7 @@ int mbd_rollout(const float* q0, const float* qd0, int per_sample,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = blocks < resident ? blocks : resident;
   rollout_kernel_retire<<<grid, kThreads, kRetireBytes, st>>>(
-      q0, qd0, per_sample, U, rews, bad, first, queue, N, H);
+      q0, qd0, per_sample, U, rews, bad, first, rows, queue, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 

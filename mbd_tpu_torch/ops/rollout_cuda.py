@@ -425,8 +425,8 @@ class Built:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         lib.mbd_rollout.restype = ctypes.c_int
         lib.mbd_rollout_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)]
@@ -445,15 +445,17 @@ class Built:
 
     def run(self, env, state0, Y0s: torch.Tensor, need_qs: bool = False,
             demo: bool = False, state_out: bool = False,
-            first: bool = False, retire: bool = False
+            first: bool = False, retire: bool = False, rows: bool = False
             ) -> Tuple[torch.Tensor, ...]:
         """One launch on CUDA tensors whose shapes ``rollout_rewards_cuda``
         has checked; its outputs in that function's layout, with
         ``state_out`` the velocities after the last step [nv, N], with
         ``first`` each sample's first flagged env step [N] (int32, −1 where
-        none) and, of the retiring form (``retire``), its queue [2] last
-        (int32: the samples ended, N once the launch is done, and the env
-        steps it ran)."""
+        none), with ``rows`` each sample's contact-row substeps that acted
+        in the env steps that started with it unflagged [N] (int32) and,
+        of the retiring form (``retire``), its queue [2] last (int32: the
+        samples ended, N once the launch is done, and the env steps it
+        ran)."""
         check_retire(retire, need_qs, demo, state_out)
         N, H, _ = Y0s.shape
         q0 = state0.pipeline_state.q.contiguous()
@@ -467,6 +469,7 @@ class Built:
         qd_out = torch.empty((env.sys.nv, N), **f32) if state_out else None
         i32 = dict(dtype=torch.int32, device=Y0s.device)
         first_out = torch.empty((N,), **i32) if first else None
+        rows_out = torch.empty((N,), **i32) if rows else None
         queue = torch.empty((2,), **i32) if retire else None
         xref = env.xref_frames if demo else None       # [H_demo, 5, 3]
 
@@ -479,7 +482,7 @@ class Built:
                 q0.data_ptr(), qd0.data_ptr(), int(q0.dim() == 2),
                 U.data_ptr(), rews.data_ptr(), bad.data_ptr(), ptr(qs),
                 ptr(xref), ptr(logpd), ptr(qd_out), ptr(first_out),
-                ptr(queue), N, H, stream)
+                ptr(rows_out), ptr(queue), N, H, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA rollout kernel launch failed: error {err}")
@@ -492,6 +495,8 @@ class Built:
             out += (qd_out,)
         if first:
             out += (first_out,)
+        if rows:
+            out += (rows_out,)
         if retire:
             out += (queue,)
         return out
@@ -588,10 +593,18 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     sample's first flagged env step (the kernel's ``first`` buffer, or the
     plain version's), the env steps after it: Σ over the flagged samples
     of H − 1 − that step (``rollout.tail_sample_steps``), work no planner
-    reads. A retiring rollout counts the sample-steps it did not run
-    (``rollout.retired_sample_steps``): on the card N·H less the env steps
-    the kernel counts as it runs them, in the plain version that tail
-    again. The launch is the same kernel whether counted or not."""
+    reads; the substeps of the env steps before it and of that step, those
+    that start with the sample unflagged: Σ (that step + 1, or H) ×
+    n_frames (``rollout.live_substeps``); and the contact rows that acted
+    (force cap not 0) in those substeps, summed over the rows
+    (``rollout.contact_row_substeps``: the kernel's ``rows`` buffer, or
+    the plain engine's count), so that their ratio is the mean number of
+    contact rows a live substep solves. A retiring rollout counts the
+    sample-steps it did not run (``rollout.retired_sample_steps``): on the
+    card N·H less the env steps the kernel counts as it runs them, in the
+    plain version that tail again. Either form gives every count but the
+    last the same value, and the launch is the same kernel whether counted
+    or not."""
     global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES, SAMPLE_STEPS, \
         DEMO_SAMPLE_STEPS
     sys = env.sys
@@ -604,10 +617,11 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     if not Y0s.is_cuda:
         SAMPLE_STEPS += N * H
         DEMO_SAMPLE_STEPS += N * H * int(demo)
-        out = rollout_outputs(env, state0, Y0s, need_qs, demo, first, retire)
+        out = rollout_outputs(env, state0, Y0s, need_qs, demo, first, retire,
+                              rows=first)
         if first and retire:
-            profiling.count("rollout.retired_sample_steps", _tail(out[-1], H))
-        return _counted(out, N, H) if first else out
+            profiling.count("rollout.retired_sample_steps", _tail(out[-2], H))
+        return _counted(out, N, H, env.n_frames) if first else out
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
     if Y0s.dtype != torch.float32:
@@ -628,7 +642,7 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     if demo and env.xref_frames.device != Y0s.device:
         raise ValueError("the env's demo frames must be on the device of Y0s")
     out = library(env).run(env, state0, Y0s, need_qs, demo, first=first,
-                           retire=retire)
+                           retire=retire, rows=first)
     LAUNCHES += 1
     DEMO_LAUNCHES += int(demo)
     QS_LAUNCHES += int(need_qs)
@@ -638,7 +652,7 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
         queue, out = out[-1], out[:-1]
         if first:
             profiling.count("rollout.retired_sample_steps", N * H - queue[1])
-    return _counted(out, N, H) if first else out
+    return _counted(out, N, H, env.n_frames) if first else out
 
 
 def check_retire(retire: bool, need_qs: bool, demo: bool,
@@ -657,14 +671,20 @@ def _tail(first: torch.Tensor, H: int) -> torch.Tensor:
     return torch.where(first >= 0, (H - 1) - first, 0).sum()
 
 
-def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int
+def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int, n_frames: int
              ) -> Tuple[torch.Tensor, ...]:
-    """Counts a rollout's sample-steps and its samples' env steps after
-    their first flag (the last of ``out``) with the recorder, on the
-    device; the outputs without the first flags."""
+    """Counts with the recorder, on the device, a rollout's sample-steps,
+    its samples' env steps after their first flag and their live substeps
+    (from the first flags, the second last of ``out``) and the contact-row
+    substeps that acted in those (the last); the outputs without those
+    two."""
+    first, rows = out[-2:]
     profiling.count("rollout.sample_steps", N * H)
-    profiling.count("rollout.tail_sample_steps", _tail(out[-1], H))
-    return out[:-1]
+    profiling.count("rollout.tail_sample_steps", _tail(first, H))
+    profiling.count("rollout.live_substeps",
+                    torch.where(first >= 0, first + 1, H).sum() * n_frames)
+    profiling.count("rollout.contact_row_substeps", rows.sum())
+    return out[:-2]
 
 
 def library(env) -> Built:

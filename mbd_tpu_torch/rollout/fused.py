@@ -28,26 +28,46 @@ RETIRED_BITS = 0x7FFFFFFF
 
 
 def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
-               U: torch.Tensor, first: bool = False):
+               U: torch.Tensor, first: bool = False, rows: bool = False):
     """q0 [nq, N], qd0 [nv, N], U [H, nu, N] →
     (qs [H, nq, N], qds [H, nv, N], diverged [N]), and with ``first`` the
     env step at whose end each sample's flag first rose [N] (int32, −1
     where it never did), as the kernel writes it into its first-flag
-    buffer."""
+    buffer; with ``rows`` each sample's contact-row substeps that acted
+    (force cap not 0) in the env steps that started with it unflagged [N]
+    (int32), as the kernel writes them into its rows buffer, from the
+    engine's row log (``sim/batched.py``'s ``ROW_LOG``, whose entries an
+    enclosing ``utils/work.py::acting_rows`` keeps)."""
     q, qd = q0, qd0
     bad = torch.zeros_like(q0[0])
     first_flag = torch.full(bad.shape, -1, dtype=torch.int32,
                             device=bad.device)
+    acted = torch.zeros(bad.shape, dtype=torch.int64, device=bad.device)
+    own = rows and BT.ROW_LOG is None
+    if own:
+        BT.ROW_LOG = []
     qs, qds = [], []
-    for t in range(U.shape[0]):
-        q, qd, bad = BT.env_step_checked_b(sys, q, qd, U[t], n_frames, bad)
-        if first:
-            first_flag = torch.where((first_flag < 0) & (bad != 0), t,
-                                     first_flag)
-        qs.append(q)
-        qds.append(qd)
+    try:
+        for t in range(U.shape[0]):
+            if rows:
+                live, logged = bad == 0, len(BT.ROW_LOG)
+            q, qd, bad = BT.env_step_checked_b(sys, q, qd, U[t], n_frames,
+                                               bad)
+            if first:
+                first_flag = torch.where((first_flag < 0) & (bad != 0), t,
+                                         first_flag)
+            if rows:
+                for entry in BT.ROW_LOG[logged:]:
+                    acted += torch.where(live, entry[0], 0)
+            qs.append(q)
+            qds.append(qd)
+    finally:
+        if own:
+            BT.ROW_LOG = None
     out = torch.stack(qs), torch.stack(qds), bad
-    return out + (first_flag,) if first else out
+    if first:
+        out += (first_flag,)
+    return out + (acted.to(torch.int32),) if rows else out
 
 
 def env_step_outputs(env, q: torch.Tensor, qd: torch.Tensor,
@@ -101,11 +121,12 @@ def initial_states(sys, state0, N: int):
 
 
 def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
-                    first: bool = False) -> Tuple[Optional[torch.Tensor],
-                                                  ...]:
+                    first: bool = False, rows: bool = False
+                    ) -> Tuple[Optional[torch.Tensor], ...]:
     """Y0s [N, H, nu] → (rews [N, H], qs [H, nq, N] if need_qs else None,
     diverged [N]), and with ``first`` each sample's first flagged env step
-    [N] (``rollout_qs``)."""
+    [N], with ``rows`` its acting contact-row substeps [N]
+    (``rollout_qs``)."""
     global CUDA_CALLS
     if Y0s.is_cuda:
         CUDA_CALLS += 1
@@ -113,38 +134,42 @@ def rollout_rewards(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
     N = Y0s.shape[0]
     U = Y0s.permute(1, 2, 0).contiguous()                # [H, nu, N]
     q0, qd0 = initial_states(sys, state0, N)
-    qs, qds, diverged, *first_flag = rollout_qs(sys, env.n_frames, q0, qd0,
-                                                U, first)
+    qs, qds, diverged, *counts = rollout_qs(sys, env.n_frames, q0, qd0, U,
+                                            first, rows)
     rews = env.reward_qs_b(qs, qds, U, q0, qd0)          # [H, N]
     return (rews.transpose(0, 1), (qs if need_qs else None), diverged,
-            *first_flag)
+            *counts)
 
 
 def rollout_outputs(env, state0, Y0s: torch.Tensor, need_qs: bool = False,
                     demo: bool = False, first: bool = False,
-                    retire: bool = False) -> Tuple[torch.Tensor, ...]:
+                    retire: bool = False, rows: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
     """The plain version of the CUDA rollout kernel: Y0s [N, H, nu] →
-    (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]][, first [N]]), in
-    the order of ``rollout_rewards_pallas``, with ``first`` (the kernel's
-    first-flag buffer) each sample's first flagged env step last
-    (``rollout_qs``). The demo log-density is scored from the position
+    (rews [N, H], bad [N][, qs [H, nq, N]][, logpd [N]][, first [N]][,
+    rows [N]]), in the order of ``rollout_rewards_pallas``, with ``first``
+    (the kernel's first-flag buffer) each sample's first flagged env step
+    and with ``rows`` (its rows buffer) its acting contact-row substeps
+    last (``rollout_qs``). The demo log-density is scored from the position
     trace, as JAX's fused engine scores it
     (``mbd_tpu/planners/mbd.py:179-188``). With ``retire``, the kernel's
     retiring form: rolled out whole, then every reward after a sample's
     first flagged env step replaced by the NaN of bits ``RETIRED_BITS``."""
-    rews, qs, bad, *first_flag = rollout_rewards(env, state0, Y0s,
-                                                 need_qs or demo,
-                                                 first or retire)
+    rews, qs, bad, *counts = rollout_rewards(env, state0, Y0s,
+                                             need_qs or demo,
+                                             first or retire, rows)
     if retire:
+        first_flag = counts[0]
         after = torch.arange(rews.shape[1], device=rews.device) > \
-            first_flag[0][:, None]
+            first_flag[:, None]
         # in place, so that the rewards keep the layout of the whole form's
         rews.view(torch.int32).masked_fill_(
-            after & (first_flag[0] >= 0)[:, None], RETIRED_BITS)
-        first_flag = first_flag if first else []
+            after & (first_flag >= 0)[:, None], RETIRED_BITS)
+        if not first:
+            counts = counts[1:]
     out = (rews, bad)
     if need_qs:
         out += (qs,)
     if demo:
         out += (env.traj_xref_logpd_qs(qs),)
-    return out + tuple(first_flag)
+    return out + tuple(counts)

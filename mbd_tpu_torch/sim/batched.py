@@ -581,8 +581,9 @@ def collide_b(sys: System, kin: KinB) -> List[ContactB]:
 # When a list, each substep of the plain engine appends its active
 # constraint rows (force cap not 0, the rows the kernel solves; a NaN cap
 # acts) as (contacts acting, contact rows, limits acting, limit rows), the
-# acting counts summed over the samples as tensors, the rows Python ints
-# (rows · samples). ``utils/work.py::acting_rows`` sets and reads it.
+# acting counts per sample as [N] tensors, the rows Python ints (rows ·
+# samples). ``utils/work.py::acting_rows`` and ``rollout/fused.py::
+# rollout_qs`` set and read it.
 ROW_LOG: Optional[list] = None
 
 
@@ -691,7 +692,7 @@ def _precompute_rows_stacked(sys: System, kin: KinB, v_b: List[Arr],
     if ROW_LOG is not None:
         acting = cap_st != 0.0
         N = ref.shape[1]
-        ROW_LOG.append((acting[:Cc].sum(), Cc * N, acting[Cc:].sum(),
+        ROW_LOG.append((acting[:Cc].sum(0), Cc * N, acting[Cc:].sum(0),
                         Cl * N))
 
     MinvJ_st, m_eff_st, fnmax_st = _row_solve(fac, J_all, cap_st,

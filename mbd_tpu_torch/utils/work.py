@@ -109,7 +109,8 @@ def acting_rows(fn, *args, **kwargs):
         batched.ROW_LOG = None
     if not log:
         return out, Rows(0, 0, 0, 0)
-    acting = torch.stack([torch.stack([e[0], e[2]]) for e in log]).sum(0)
+    acting = torch.stack([torch.stack([e[0].sum(), e[2].sum()])
+                          for e in log]).sum(0)
     return out, Rows(int(acting[0]), sum(e[1] for e in log),
                      int(acting[1]), sum(e[3] for e in log))
 

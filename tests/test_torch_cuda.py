@@ -377,20 +377,23 @@ def _first_flag_case(card, name, N, H=10):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,N", [("humanoidrun", 1024), ("hopper", 256)])
 def test_kernel_first_flag_matches_plain_version(card, name, N):
-    """The kernel's first flagged env step equals the plain version's,
-    sample by sample, and some samples flag; while the recorder counts,
-    the wrapper counts N·H sample-steps and Σ H − 1 − first over the
-    flagged samples, summed on the card."""
+    """The kernel's first flagged env step and its acting contact-row
+    substeps equal the plain version's, sample by sample, and some samples
+    flag; while the recorder counts, the wrapper counts N·H sample-steps,
+    Σ H − 1 − first over the flagged samples, the live substeps and the
+    acting contact rows, summed on the card."""
     from mbd_tpu_torch.utils import profiling
 
     env, state0, Y0s = _first_flag_case(card, name, N)
     H = Y0s.shape[1]
-    out = rollout_cuda.library(env).run(env, state0, Y0s, first=True)
-    plain = rollout_outputs(env, state0, Y0s, first=True)
+    out = rollout_cuda.library(env).run(env, state0, Y0s, first=True,
+                                        rows=True)
+    plain = rollout_outputs(env, state0, Y0s, first=True, rows=True)
     torch.cuda.synchronize()
+    assert torch.equal(out[-2], plain[-2])
     assert torch.equal(out[-1], plain[-1])
     assert torch.equal(out[1], plain[1])
-    first = out[-1]
+    first = out[-2]
     assert bool((first >= 0).any())
     profiling.clear()
     with profiling.recording(counters=True):
@@ -399,20 +402,24 @@ def test_kernel_first_flag_matches_plain_version(card, name, N):
     profiling.clear()
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps":
-                      int(((H - 1) - first[first >= 0]).sum())}
+                      int(((H - 1) - first[first >= 0]).sum()),
+                      "rollout.live_substeps": int(torch.where(
+                          first >= 0, first + 1, H).sum()) * env.n_frames,
+                      "rollout.contact_row_substeps": int(out[-1].sum())}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["humanoidrun", "hopper"])
 def test_counting_form_leaves_rewards_and_flags(card, name):
-    """Rewards and flags bit for bit the same with the first-flag buffer
-    and without it (one kernel: the buffer only adds a write)."""
+    """Rewards and flags bit for bit the same with the first-flag and rows
+    buffers and without them (one kernel: the buffers only add their
+    count and writes)."""
     env, state0, Y0s = _first_flag_case(card, name, 512)
     built = rollout_cuda.library(env)
     plain = built.run(env, state0, Y0s)
-    counted = built.run(env, state0, Y0s, first=True)
+    counted = built.run(env, state0, Y0s, first=True, rows=True)
     torch.cuda.synchronize()
-    assert len(counted) == len(plain) + 1
+    assert len(counted) == len(plain) + 2
     for a, b in zip(plain, counted):
         assert torch.equal(a.contiguous().view(torch.int32),
                            b.contiguous().view(torch.int32))
@@ -430,20 +437,23 @@ def test_retiring_form_matches_whole_form(card, name, N):
     each sample's steps up to its first flag, all H of a clean one. The
     samples past those that reside at once are refills: none for
     humanoidrun at 1 024 (the whole form's grid), some at 8 192 and for
-    hopper at 16 384. Counted, the retired sample-steps are the tail."""
+    hopper at 16 384. Counted, the retired sample-steps are the tail, and
+    the live substeps and acting contact rows are the whole form's."""
     from mbd_tpu_torch.utils import profiling
 
     env, state0, Y0s = _first_flag_case(card, name, N)
     H = Y0s.shape[1]
     built = rollout_cuda.library(env)
-    rews, bad, first = built.run(env, state0, Y0s, first=True)
-    rews_r, bad_r, first_r, queue = built.run(env, state0, Y0s, first=True,
-                                              retire=True)
+    rews, bad, first, rows = built.run(env, state0, Y0s, first=True,
+                                       rows=True)
+    rews_r, bad_r, first_r, rows_r, queue = built.run(
+        env, state0, Y0s, first=True, retire=True, rows=True)
     plain = rollout_outputs(env, state0, Y0s, first=True, retire=True)
     torch.cuda.synchronize()
     ran = int(torch.where(first >= 0, first + 1, H).sum())
     assert queue.tolist() == [N, ran]
     assert torch.equal(bad_r, bad) and torch.equal(first_r, first)
+    assert torch.equal(rows_r, rows)
     assert bool((first >= 0).any())
     after = (torch.arange(H, device=card)[None] > first[:, None]) & \
         (first >= 0)[:, None]
@@ -464,7 +474,9 @@ def test_retiring_form_matches_whole_form(card, name, N):
     tail = int(((H - 1) - first[first >= 0]).sum())
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps": tail,
-                      "rollout.retired_sample_steps": tail}
+                      "rollout.retired_sample_steps": tail,
+                      "rollout.live_substeps": ran * env.n_frames,
+                      "rollout.contact_row_substeps": int(rows.sum())}
 
 
 @pytest.mark.cuda
@@ -482,3 +494,43 @@ def test_retiring_form_keeps_residency(card, name, blocks):
         assert retire["shared_bytes"] > whole["shared_bytes"]
         assert retire["sms_used"] == whole["sms_used"] == min(
             sms, -(-N // (whole["threads_per_block"] // whole["G"])))
+
+
+@pytest.mark.cuda
+def test_kernel_counts_the_reference_contact_rows_at_a_plan_step(card):
+    """humanoidstandup at its planning shape, 2048 × 50: the samples of a
+    plan's reverse step 0 (around the zero iterate, from the reset of
+    seed 2⁴⁰ + 17), rolled out by the retiring and the whole form while
+    the recorder counts; each form's acting contact-row substeps and live
+    substeps are the plain reference's (``benchmark/reference``'s
+    ``Work``) for that launch."""
+    from benchmark.reference import models
+    from benchmark.reference import planner as P
+    from benchmark.reference.rollout import rollout
+    from mbd_tpu_torch.planners import mbd
+    from mbd_tpu_torch.utils import profiling
+
+    seed, N, H, T = 2 ** 40 + 17, 2048, 50, 100
+    env = envs.get_env("humanoidstandup", device=card)
+    model = models.load("humanoidstandup", card)
+    sched = P.schedule(T, 1e-4, 1e-2, card)
+    d = P.draws(model, [seed], [0], (N, H, env.action_size), card)
+    Y0s = P.samples(sched, T - 1, torch.zeros((1, H, env.action_size),
+                                              device=card), d.eps[0])[0]
+    state0 = mbd.batch_states(
+        env, [env.reset(torch.Generator(card).manual_seed(seed))], N)
+    counts = []
+    for retire in (True, False):
+        profiling.clear()
+        with profiling.recording(counters=True):
+            rollout_cuda.rollout_rewards_cuda(env, state0, Y0s,
+                                              retire=retire)
+        counts.append(profiling.recorded().counts[0])
+    profiling.clear()
+    _, _, work = rollout(model, P.seed_major(d.q0, N), P.seed_major(d.qd0, N),
+                         Y0s, record=True)
+    for c in counts:
+        assert c["rollout.contact_row_substeps"] == int(work.contacts.sum())
+        assert c["rollout.live_substeps"] == \
+            int(work.live_steps.sum()) * env.n_frames
+    assert counts[0]["rollout.contact_row_substeps"] > 0

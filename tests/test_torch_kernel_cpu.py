@@ -138,14 +138,15 @@ inline int popc(unsigned m) { return __builtin_popcount(m); }
 # Warp by warp, 32 threads each, as on the card (groups of kG lanes, the
 # ragged tail's groups rolling sample N − 1 out again and writing
 # nothing), in slices filled with NaN first, so that a read before a write
-# shows in the output.
+# shows in the output. The ``_rows`` entry points also take the rows
+# buffer, the others pass none.
 DRIVER = """
 }  // namespace
-extern "C" void cpu_rollout(const float* q0, const float* qd0,
-                            int per_sample, const float* U, float* rews,
-                            float* bad, float* qs, const float* xref,
-                            float* logpd, float* qd_out, int* first, int N,
-                            int H) {
+extern "C" void cpu_rollout_rows(const float* q0, const float* qd0,
+                                 int per_sample, const float* U, float* rews,
+                                 float* bad, float* qs, const float* xref,
+                                 float* logpd, float* qd_out, int* first,
+                                 int* rows, int N, int H) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(W);
@@ -162,19 +163,28 @@ extern "C" void cpu_rollout(const float* q0, const float* qd0,
         const Group<kG> g{t % kG, t - t % kG, &bar, words, bits, ints};
         rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
                            per_sample, U, rews, bad, qs, xref, logpd, qd_out,
-                           first, N, H);
+                           first, rows, N, H);
       });
     for (auto& t : lanes) t.join();
   }
+}
+extern "C" void cpu_rollout(const float* q0, const float* qd0,
+                            int per_sample, const float* U, float* rews,
+                            float* bad, float* qs, const float* xref,
+                            float* logpd, float* qd_out, int* first, int N,
+                            int H) {
+  cpu_rollout_rows(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out,
+                   first, nullptr, N, H);
 }
 // The retiring form with `warps` warps resident at once, all running side
 // by side: their groups start with samples 0 … warps · 32/kG − 1 and take
 // the rest from queue[0] (queue[1]: the env steps run), each warp leaving
 // when its groups find it empty.
-extern "C" void cpu_rollout_retire(const float* q0, const float* qd0,
-                                   int per_sample, const float* U,
-                                   float* rews, float* bad, int* first,
-                                   int* queue, int N, int H, int warps) {
+extern "C" void cpu_rollout_retire_rows(const float* q0, const float* qd0,
+                                        int per_sample, const float* U,
+                                        float* rews, float* bad, int* first,
+                                        int* rows, int* queue, int N, int H,
+                                        int warps) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(warps * W);
@@ -195,10 +205,17 @@ extern "C" void cpu_rollout_retire(const float* q0, const float* qd0,
       const Group<kG> g{l % kG, l - l % kG, bars[w].get(), &words[w * W],
                         &bits[w * 32], &ints[w * 32]};
       rollout_retiring<kG>(g, slice[grp], book[grp], grp, q0, qd0,
-                           per_sample, U, rews, bad, first, queue, warps * W,
-                           N, H);
+                           per_sample, U, rews, bad, first, rows, queue,
+                           warps * W, N, H);
     });
   for (auto& t : lanes) t.join();
+}
+extern "C" void cpu_rollout_retire(const float* q0, const float* qd0,
+                                   int per_sample, const float* U,
+                                   float* rews, float* bad, int* first,
+                                   int* queue, int N, int H, int warps) {
+  cpu_rollout_retire_rows(q0, qd0, per_sample, U, rews, bad, first, nullptr,
+                          queue, N, H, warps);
 }
 """
 ATOL = 2e-6
@@ -232,6 +249,12 @@ def _cpu_kernel(env, out_dir, G):
     lib.cpu_rollout_retire.argtypes = [ctypes.c_void_p] * 2 + \
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.cpu_rollout_retire.restype = None
+    lib.cpu_rollout_rows.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+    lib.cpu_rollout_rows.restype = None
+    lib.cpu_rollout_retire_rows.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    lib.cpu_rollout_retire_rows.restype = None
     return lib
 
 
@@ -608,3 +631,64 @@ def test_kernel_source_retiring_form(tmp_path, libm_math):
                             first=True, retire=True)
     assert torch.equal(plain[0].view(torch.int32), bits_r.t())
     assert torch.equal(plain[1], bad_r) and torch.equal(plain[2], first_r)
+
+
+def _flagging(sys, gen):
+    """``_past_limits`` with every fourth sample's first dof at 150, past
+    the speed that flags, so that it flags at env step 0 and its later
+    env steps start flagged."""
+    q, qd = _past_limits(sys, gen)
+    qd[0, ::4] = 150.0
+    return q, qd.contiguous()
+
+
+@pytest.mark.parametrize("name", ["humanoidstandup", "hopper"])
+def test_kernel_source_counts_acting_contact_rows(name, tmp_path, libm_math):
+    """The rows buffer: each sample's contact-row substeps whose force
+    cap is not 0, in the env steps that start with it unflagged, at the
+    env's own substeps over 3 env steps, from states with limits passed,
+    capsules in the floor in some samples and clear in others, and a
+    quarter of the samples flagged at step 0. The whole form's and the
+    retiring form's (2 warps resident, the rest refills) equal the plain
+    version's count and the plain reference's recorder
+    (``benchmark/reference/engine.py``'s ``Recorder``) sample by sample;
+    rewards, flags and first flags are the plain version's bit for bit
+    (under ``libm_math``, for the moved hinges' angles)."""
+    from benchmark.reference import models
+    from benchmark.reference.rollout import rollout
+
+    env = envs.get_env(name, device="cpu")
+    lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
+    gen = torch.Generator().manual_seed(0)
+    q0, qd0 = _flagging(env.sys, gen)
+    H = 3
+    Y0s = 2 * torch.rand((N, H, env.action_size), generator=gen) - 1
+    U = Y0s.permute(1, 2, 0).contiguous()
+    rews, bad = torch.empty((H, N)), torch.empty(N)
+    rews_r, bad_r = torch.empty((H, N)), torch.empty(N)
+    first, rows, first_r, rows_r = (torch.empty(N, dtype=torch.int32)
+                                    for _ in range(4))
+    queue = torch.empty(2, dtype=torch.int32)
+    lib.cpu_rollout_rows(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
+                         rews.data_ptr(), bad.data_ptr(), None, None, None,
+                         None, first.data_ptr(), rows.data_ptr(), N, H)
+    lib.cpu_rollout_retire_rows(
+        q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(), rews_r.data_ptr(),
+        bad_r.data_ptr(), first_r.data_ptr(), rows_r.data_ptr(),
+        queue.data_ptr(), N, H, 2)
+    state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
+    plain = rollout_outputs(env, state, Y0s, first=True, rows=True)
+    _, _, work = rollout(models.load(name, "cpu"), q0, qd0, Y0s, record=True)
+    assert torch.equal(rews.t().contiguous().view(torch.int32),
+                       plain[0].contiguous().view(torch.int32))
+    assert torch.equal(bad, plain[1]) and torch.equal(bad_r, bad)
+    assert torch.equal(first, plain[2]) and torch.equal(first_r, first)
+    assert bool((first == 0).any()) and bool((first < 0).any())
+    live = torch.where(first >= 0, first + 1, H)
+    assert queue.tolist() == [N, int(live.sum())]
+    assert torch.equal(work.live_steps, live.float())
+    assert torch.equal(rows, plain[3]) and torch.equal(rows_r, rows)
+    assert torch.equal(rows.float(), work.contacts)
+    # rows act in some substeps and not in others
+    assert 0 < int(rows.sum()) < int(live.sum()) * env.n_frames * \
+        work.n_contacts

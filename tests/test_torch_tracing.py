@@ -85,8 +85,8 @@ def test_nothing_is_recorded_outside_a_profiler():
 
 def test_counters_only_when_asked():
     """``recording()`` records spans and no counter, and the rollout
-    then fills no first-flag buffer; ``recording(counters=True)`` and a
-    profiler keep the counters too."""
+    then fills no first-flag or rows buffer; ``recording(counters=True)``
+    and a profiler keep the counters too."""
     profiling.clear()
     env = envs.get_env("hopper", device="cpu")
     state0 = env.reset(torch.Generator().manual_seed(0))
@@ -102,8 +102,11 @@ def test_counters_only_when_asked():
     with profiling.recording(counters=True):
         assert profiling.counting()
         assert len(rollout_cuda.rollout_rewards_cuda(env, state0, Y)) == 2
+    rows = rollout_outputs(env, state0, Y, rows=True)[-1]
     assert profiling.recorded().counts == {0: {
-        "rollout.sample_steps": 8, "rollout.tail_sample_steps": 0}}
+        "rollout.sample_steps": 8, "rollout.tail_sample_steps": 0,
+        "rollout.live_substeps": 8 * env.n_frames,
+        "rollout.contact_row_substeps": int(rows.sum())}}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
         assert profiling.on() and profiling.counting()
@@ -179,12 +182,17 @@ def test_plan_is_the_same_recorded_or_not(plans):
 def test_plan_counts_its_sample_steps_and_tail(plans):
     """The rollout's counters over the plan: T launches of S·N samples
     and the final selection's S·T, H steps each, the T retiring; hopper
-    at these sizes flags nothing, so nothing is retired."""
+    at these sizes flags nothing, so nothing is retired and every substep
+    is live; contact rows act in some of them."""
     rec = plans[2]
     S, N, H = 2, R.TRACE_CFG["Nsample"], R.TRACE_CFG["Hsample"]
-    assert rec.counts == {0: {"rollout.sample_steps": (T * S * N + S * T)
-                              * H, "rollout.tail_sample_steps": 0,
-                              "rollout.retired_sample_steps": 0}}
+    steps = (T * S * N + S * T) * H
+    rows = rec.counts[0].pop("rollout.contact_row_substeps")
+    assert rec.counts == {0: {"rollout.sample_steps": steps,
+                              "rollout.tail_sample_steps": 0,
+                              "rollout.retired_sample_steps": 0,
+                              "rollout.live_substeps": steps * 20}}
+    assert 0 < rows < steps * 20 * 4
 
 
 def test_ranks_hand_back_their_records():
@@ -303,8 +311,12 @@ def test_plain_first_flag_of_whole_env_steps():
     profiling.clear()
     assert len(out) == 2 and torch.equal(out[0], rews)
     tail = int(((H - 1) - first[first >= 0]).sum())
+    rows = rollout_outputs(env, state0, Y, rows=True)[-1]
     assert counts == {"rollout.sample_steps": N * H,
-                      "rollout.tail_sample_steps": tail}
+                      "rollout.tail_sample_steps": tail,
+                      "rollout.live_substeps": int(torch.where(
+                          first >= 0, first + 1, H).sum()) * env.n_frames,
+                      "rollout.contact_row_substeps": int(rows.sum())}
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -316,7 +328,8 @@ def test_plan_is_the_same_retired_or_whole(k, monkeypatch):
     0), and the plan's iterates, rewards and final reward are bit for bit
     those of the plan whose rollouts all run whole, so no reader of a
     flagged sample's rewards is left. Counted, the retired sample-steps
-    are the NaN rewards of the retiring rollouts."""
+    are the NaN rewards of the retiring rollouts, and the live substeps
+    and acting contact rows are the same either way."""
     env = envs.get_env("humanoidrun", device="cpu")
     env.n_frames = 1
     d = F.fixture("humanoidrun")
@@ -350,9 +363,47 @@ def test_plan_is_the_same_retired_or_whole(k, monkeypatch):
     assert nans > 0 and all(c[2] == 0 for c in whole)
     assert counts[0]["rollout.retired_sample_steps"] == nans
     assert "rollout.retired_sample_steps" not in counts[1]
+    for key in ("rollout.live_substeps", "rollout.contact_row_substeps"):
+        assert counts[0][key] == counts[1][key], key
     for field in R.PLAN_FIELDS:
         a, b = (torch.as_tensor(getattr(r, field)) for r in results)
         assert torch.equal(a, b), field
+
+
+def test_plan_counts_its_live_substeps_and_acting_contact_rows(
+        monkeypatch):
+    """The small humanoidrun plan above from the fixture's flagged state
+    1, counted: ``rollout.live_substeps`` is Σ over its rollouts and
+    samples of (first flagged env step + 1, or H) × n_frames, fewer than
+    all, and ``rollout.contact_row_substeps`` the Σ of the plain version's
+    rows count, each rollout redone with its first flags and rows."""
+    env = envs.get_env("humanoidrun", device="cpu")
+    env.n_frames = 1
+    d = F.fixture("humanoidrun")
+    state = SimpleNamespace(pipeline_state=SimpleNamespace(
+        q=torch.from_numpy(d["q"][1]), qd=torch.from_numpy(d["qd"][1])))
+    cfg = mbd.MBDConfig(Nsample=16, Hsample=4, Ndiffuse=4)
+    real = mbd.rollout_rewards_cuda
+    want = dict(live=0, rows=0)
+
+    def spy(env, state0, Y0s, demo=False, retire=False):
+        _, _, first, rows = rollout_outputs(env, state0, Y0s, first=True,
+                                            rows=True)
+        want["live"] += int(torch.where(first >= 0, first + 1,
+                                        Y0s.shape[1]).sum()) * env.n_frames
+        want["rows"] += int(rows.sum())
+        return real(env, state0, Y0s, demo=demo, retire=retire)
+
+    monkeypatch.setattr(mbd, "rollout_rewards_cuda", spy)
+    profiling.clear()
+    with profiling.recording(counters=True):
+        mbd.plan(env, cfg, torch.Generator().manual_seed(0),
+                 state_init=state)
+    counts = profiling.recorded().counts[0]
+    profiling.clear()
+    assert counts["rollout.live_substeps"] == want["live"]
+    assert want["live"] < counts["rollout.sample_steps"] * env.n_frames
+    assert counts["rollout.contact_row_substeps"] == want["rows"] > 0
 
 
 def test_wrapper_refuses_retire_past_the_flag():
