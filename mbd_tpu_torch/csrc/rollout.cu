@@ -38,11 +38,13 @@
 // computed by one lane in the order of the torch engine
 // (mbd_tpu_torch/sim/batched.py), term for term. No sum is split across
 // lanes, and the library is built with --fmad=false, so the kernel's
-// outputs equal the plain version's bit for bit. The passes along the tree
-// that the tree does not let split (forward kinematics, the final solve and
-// the integrator, the reward and the demo score) run on lane 0; the
-// hinges' half-angle sines and cosines, which forward kinematics needs, are
-// taken first, a hinge a lane. Every lane of a warp takes every barrier,
+// outputs equal the plain version's bit for bit. Forward kinematics runs a
+// tree level a phase, the level's bodies across the lanes, where the body
+// tree branches (fk_levels), and body after body on lane 0 along a chain;
+// the hinges' half-angle sines and cosines, which it needs, are taken
+// first, a hinge a lane. The passes that the tree does not let split (the
+// final solve and the integrator, the reward and the demo score) run on
+// lane 0. Every lane of a warp takes every barrier,
 // so the group's barrier is the warp's and a warp's groups keep in step,
 // each on its own sample.
 //
@@ -258,10 +260,108 @@ __device__ __forceinline__ void ldl_solve(const float* F, float* x) {
   });
 }
 
-// Forward kinematics (sim/batched.py::fk_b): every body's world position
-// and orientation and, with kMotion, every dof's motion subspace S
-// ([angular, linear] about the world origin). Bodies whose parent is the
-// world start from its identity pose, so a forest needs nothing more.
+// A body's pose before its joints: its parent's (ppos, pquat) moved by the
+// body's offset (bp, bq) (sim/batched.py::fk_b).
+__device__ __forceinline__ void body_frame(const float* ppos,
+                                           const float* pquat,
+                                           const float* bp, const float* bq,
+                                           float* pos, float* quat) {
+  float c[3];
+  qrot(pquat, bp, c);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pos[k] = ppos[k] + c[k];
+  qmul(pquat, bq, quat);
+}
+
+// One joint of forward kinematics (sim/batched.py::fk_b): a joint of kind
+// kKind at q[qa] and dof da, with its axis ax and anchor jp in the body's
+// frame and q0 its initial coordinate, moves the body's pose (pos, quat) in
+// place and, with kMotion, writes its dofs' motion subspaces S ([angular,
+// linear] about the world origin). dq_pre is a hinge's half-angle rotation
+// where it was taken beforehand (the substep), else null.
+template <int kKind, bool kMotion>
+__device__ __forceinline__ void joint_fk(const float* q, int qa, int da,
+                                         const float* ax, const float* jp,
+                                         float q0, const float* dq_pre,
+                                         float* pos, float* quat,
+                                         float (*S)[6]) {
+  if constexpr (kKind == kFree) {
+    // position and unit quaternion from q; 3 linear, then 3 angular
+    // columns (the rotation's columns c_k, paired with pos × c_k)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pos[k] = q[qa + k];
+    const float qn = sqrtf(q[qa + 3] * q[qa + 3] + q[qa + 4] * q[qa + 4] +
+                           q[qa + 5] * q[qa + 5] + q[qa + 6] * q[qa + 6]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) quat[k] = q[qa + 3 + k] / qn;
+    const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
+    const float col[3][3] = {
+        {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y + w * z),
+         2.0f * (x * z - w * y)},
+        {2.0f * (x * y - w * z), 1.0f - 2.0f * (x * x + z * z),
+         2.0f * (y * z + w * x)},
+        {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
+         1.0f - 2.0f * (x * x + y * y)}};
+    if constexpr (kMotion) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          S[da + k][m] = 0.0f;
+          S[da + k][3 + m] = (m == k) ? 1.0f : 0.0f;
+          S[da + 3 + k][m] = col[k][m];
+        }
+        cross3(pos, col[k], S[da + 3 + k] + 3);
+      }
+    }
+  } else {
+    float axis_w[3];
+    qrot(quat, ax, axis_w);
+    if constexpr (kKind == kHinge) {
+      float c[3], anchor[3], dq[4], nq[4];
+      qrot(quat, jp, c);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + c[k];
+      if (dq_pre != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dq[k] = dq_pre[k];
+      } else {
+        const float theta = q[qa] - q0;
+        const float s = sinf(0.5f * theta);
+        dq[0] = cosf(0.5f * theta);
+        dq[1] = ax[0] * s;
+        dq[2] = ax[1] * s;
+        dq[3] = ax[2] * s;
+      }
+      qmul(quat, dq, nq);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) quat[k] = nq[k];
+      qrot(quat, jp, c);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - c[k];
+      if constexpr (kMotion) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) S[da][k] = axis_w[k];
+        cross3(anchor, axis_w, S[da] + 3);
+      }
+    } else {  // slide
+      const float d = q[qa] - q0;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pos[k] = pos[k] + axis_w[k] * d;
+      if constexpr (kMotion) {
+        S[da][0] = S[da][1] = S[da][2] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) S[da][3 + k] = axis_w[k];
+      }
+    }
+  }
+}
+
+// Forward kinematics (sim/batched.py::fk_b) on one lane: every body's world
+// position and orientation and, with kMotion, every dof's motion subspace
+// S, body after body. Bodies whose parent is the world start from its
+// identity pose, so a forest needs nothing more. hq: the hinges'
+// half-angle rotations, where taken beforehand.
 template <bool kMotion>
 __device__ __forceinline__ void fk(const float* q, float (&xpos)[NB][3],
                                    float (&xquat)[NB][4], float (*S)[6],
@@ -271,89 +371,18 @@ __device__ __forceinline__ void fk(const float* q, float (&xpos)[NB][3],
   xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
   static_for<1, NB>([&](auto B) {
     constexpr int b = IDX(B), p = body_parent(b);
-    float c[3], pos[3], quat[4];
+    float pos[3], quat[4];
     const float bp[3] = {body_pos(b, 0), body_pos(b, 1), body_pos(b, 2)};
     const float bq[4] = {body_quat(b, 0), body_quat(b, 1), body_quat(b, 2),
                          body_quat(b, 3)};
-    qrot(xquat[p], bp, c);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pos[k] = xpos[p][k] + c[k];
-    qmul(xquat[p], bq, quat);
+    body_frame(xpos[p], xquat[p], bp, bq, pos, quat);
     static_for<0, n_body_jnt(b)>([&](auto M) {
-      constexpr int j = body_jnt(IDX(B), IDX(M));
-      constexpr int qa = jnt_qadr(j), da = jnt_dadr(j);
-      if constexpr (jnt_type(j) == kFree) {
-        // position and unit quaternion from q; 3 linear, then 3 angular
-        // columns (the rotation's columns c_k, paired with pos × c_k)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) pos[k] = q[qa + k];
-        const float qn = sqrtf(q[qa + 3] * q[qa + 3] + q[qa + 4] * q[qa + 4] +
-                               q[qa + 5] * q[qa + 5] + q[qa + 6] * q[qa + 6]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) quat[k] = q[qa + 3 + k] / qn;
-        const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
-        const float col[3][3] = {
-            {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y + w * z),
-             2.0f * (x * z - w * y)},
-            {2.0f * (x * y - w * z), 1.0f - 2.0f * (x * x + z * z),
-             2.0f * (y * z + w * x)},
-            {2.0f * (x * z + w * y), 2.0f * (y * z - w * x),
-             1.0f - 2.0f * (x * x + y * y)}};
-        if constexpr (kMotion) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-#pragma unroll
-            for (int m = 0; m < 3; ++m) {
-              S[da + k][m] = 0.0f;
-              S[da + k][3 + m] = (m == k) ? 1.0f : 0.0f;
-              S[da + 3 + k][m] = col[k][m];
-            }
-            cross3(pos, col[k], S[da + 3 + k] + 3);
-          }
-        }
-      } else {
-        const float ax[3] = {jnt_axis(j, 0), jnt_axis(j, 1), jnt_axis(j, 2)};
-        float axis_w[3];
-        qrot(quat, ax, axis_w);
-        if constexpr (jnt_type(j) == kHinge) {
-          const float jp[3] = {jnt_pos(j, 0), jnt_pos(j, 1), jnt_pos(j, 2)};
-          float anchor[3], dq[4], nq[4];
-          qrot(quat, jp, c);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + c[k];
-          if (hq != nullptr) {  // precomputed (substep)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) dq[k] = hq[jnt_hinge(j)][k];
-          } else {
-            const float theta = q[qa] - init_q(qa);
-            const float s = sinf(0.5f * theta);
-            dq[0] = cosf(0.5f * theta);
-            dq[1] = ax[0] * s;
-            dq[2] = ax[1] * s;
-            dq[3] = ax[2] * s;
-          }
-          qmul(quat, dq, nq);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) quat[k] = nq[k];
-          qrot(quat, jp, c);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) pos[k] = anchor[k] - c[k];
-          if constexpr (kMotion) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) S[da][k] = axis_w[k];
-            cross3(anchor, axis_w, S[da] + 3);
-          }
-        } else {  // slide
-          const float d = q[qa] - init_q(qa);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) pos[k] = pos[k] + axis_w[k] * d;
-          if constexpr (kMotion) {
-            S[da][0] = S[da][1] = S[da][2] = 0.0f;
-#pragma unroll
-            for (int k = 0; k < 3; ++k) S[da][3 + k] = axis_w[k];
-          }
-        }
-      }
+      constexpr int j = body_jnt(IDX(B), IDX(M)), h = jnt_hinge(j);
+      const float ax[3] = {jnt_axis(j, 0), jnt_axis(j, 1), jnt_axis(j, 2)};
+      const float jp[3] = {jnt_pos(j, 0), jnt_pos(j, 1), jnt_pos(j, 2)};
+      joint_fk<jnt_type(j), kMotion>(
+          q, jnt_qadr(j), jnt_dadr(j), ax, jp, init_q(jnt_qadr(j)),
+          (h >= 0 && hq != nullptr) ? hq[h] : nullptr, pos, quat, S);
     });
 #pragma unroll
     for (int k = 0; k < 3; ++k) xpos[b][k] = pos[k];
@@ -828,13 +857,67 @@ __device__ __forceinline__ float force_dir(const Work& s, int c, int i) {
 // lanes t = lane, lane + G, … < n
 #define LANES(t, n) for (int t = g.lane; t < (n); t += G)
 
+#if NFK > 0
+// Forward kinematics by the group where the body tree branches (NFK > 0 in
+// model.h): NFK stages, each the bodies of one depth whose joints have one
+// list of kinds, in fk's order of depths, a body a lane. A lane reads its
+// body's parent pose, which a stage one level up wrote before the barrier
+// that closes each level, and its body's tables through the block's shared
+// copy (a hinge's by its index among the hinges, a slide's among the
+// slides); the stage's kinds, fixed at compile time, keep its lanes on one
+// instruction stream. Each pose and motion subspace is fk's, term for term.
+// The world's pose is load_state's.
+template <int G>
+__device__ __forceinline__ void fk_levels(const Group<G>& g, Work& s) {
+  static_for<0, NFK>([&](auto St) {
+    constexpr int st = IDX(St), b0 = fk_body(st, 0);
+    LANES(m, n_fk_body(st)) {
+      const int b = t_fk_body(st, m), p = t_body_parent(b);
+      float pos[3], quat[4];
+      const float bp[3] = {t_body_pos(b, 0), t_body_pos(b, 1),
+                           t_body_pos(b, 2)};
+      const float bq[4] = {t_body_quat(b, 0), t_body_quat(b, 1),
+                           t_body_quat(b, 2), t_body_quat(b, 3)};
+      body_frame(s.xpos[p], s.xquat[p], bp, bq, pos, quat);
+      static_for<0, n_body_jnt(b0)>([&](auto M) {
+        constexpr int kind = jnt_type(body_jnt(fk_body(IDX(St), 0), IDX(M)));
+        const int j = t_body_jnt(b, IDX(M)), da = t_jnt_dadr(j);
+        if constexpr (kind == kFree) {
+          joint_fk<kind, true>(s.q, t_jnt_qadr(j), da, nullptr, nullptr,
+                               0.0f, nullptr, pos, quat, s.S);
+        } else if constexpr (kind == kHinge) {
+          const int h = t_jnt_hinge(j);
+          const float ax[3] = {t_hinge_axis(h, 0), t_hinge_axis(h, 1),
+                               t_hinge_axis(h, 2)};
+          const float jp[3] = {t_hinge_pos(h, 0), t_hinge_pos(h, 1),
+                               t_hinge_pos(h, 2)};
+          joint_fk<kind, true>(s.q, 0, da, ax, jp, 0.0f, s.hq[h], pos, quat,
+                               s.S);
+        } else {
+          const int l = t_jnt_slide(j);
+          const float ax[3] = {t_slide_axis(l, 0), t_slide_axis(l, 1),
+                               t_slide_axis(l, 2)};
+          joint_fk<kind, true>(s.q, t_jnt_qadr(j), da, ax, nullptr,
+                               t_slide_q0(l), nullptr, pos, quat, s.S);
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s.xpos[b][k] = pos[k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s.xquat[b][k] = quat[k];
+    }
+    if constexpr (fk_sync(st)) g.sync();
+  });
+}
+#endif
+
 // One physics substep (sim/batched.py::substep_b) of the group's sample,
 // in place on s.q, s.qd. Every lane calls it; each phase ends at the
 // group's barrier.
 template <int G>
 __device__ void substep(const Group<G>& g, Slice& s) {
   g.sync();  // lane 0's q, qd and u
-  // ---- each hinge's half-angle rotation, then forward kinematics ----
+  // ---- each hinge's half-angle rotation ----
   LANES(h, kNH) {
     const float ax[3] = {t_hinge_axis(h, 0), t_hinge_axis(h, 1),
                          t_hinge_axis(h, 2)};
@@ -846,7 +929,13 @@ __device__ void substep(const Group<G>& g, Slice& s) {
     s.hq[h][3] = ax[2] * sn;
   }
   g.sync();
+  // ---- forward kinematics: a tree level a phase across the lanes where
+  // the tree branches, body after body on lane 0 along a chain ----
+#if NFK > 0
+  fk_levels<G>(g, s);
+#else
   if (g.lane == 0) fk<true>(s.q, s.xpos, s.xquat, s.S, s.hq);
+#endif
   g.sync();
   // Within a phase the kinds of task run one after another, each spread
   // over the lanes: a loop of one kind keeps the lanes on one path.
@@ -1053,7 +1142,8 @@ __device__ void track_cost(Work& s, const float* xref_t, float& acc) {
 
 // Sample n's initial state into the slice (lane 0): q0 [NQ] and qd0 [NV]
 // shared by every sample, or q0 [NQ, N] and qd0 [NV, N] per sample; its
-// count of acting contact-row substeps from 0.
+// count of acting contact-row substeps from 0; and, where the group's
+// forward kinematics reads it (fk_levels), the world's identity pose.
 __device__ __forceinline__ void load_state(Slice& s,
                                            const float* __restrict__ q0,
                                            const float* __restrict__ qd0,
@@ -1064,6 +1154,11 @@ __device__ __forceinline__ void load_state(Slice& s,
   for (int i = 0; i < NV; ++i)
     s.qd[i] = per_sample ? qd0[i * N + n] : qd0[i];
   s.rows = 0;
+#if NFK > 0
+  s.xpos[0][0] = s.xpos[0][1] = s.xpos[0][2] = 0.0f;
+  s.xquat[0][0] = 1.0f;
+  s.xquat[0][1] = s.xquat[0][2] = s.xquat[0][3] = 0.0f;
+#endif
 }
 
 // Env step t's controls of sample n into the slice, and what the reward
@@ -1240,7 +1335,7 @@ struct Book {
 // the next sample from the launch-wide queue, started + one atomicAdd on
 // queue[0], and starts it at t = 0 from its initial state: the slice
 // carries only q, qd and u from one substep to the next (and the count,
-// rows), and load_state and begin_step set them all. A group that finds the
+// rows, and the world's pose), and load_state and begin_step set them all. A group that finds the
 // queue empty replays sample N − 1 from its start and writes nothing, so
 // that its lanes keep taking the warp's barriers; the warp leaves once
 // none of its groups holds a sample.

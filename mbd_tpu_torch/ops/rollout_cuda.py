@@ -95,6 +95,16 @@ RUNTIME_TABLES = frozenset((
     "pair_quat_a", "pair_pos_b", "pair_quat_b", "pair_r1", "pair_hl1",
     "pair_r2", "pair_hl2", "pair_r12", "pair_box_b", "pair_mu", "con_sgn",
     "hinge_qadr", "hinge_q0", "hinge_axis"))
+# And, where forward kinematics runs a tree level across the lanes
+# (``fk_stages``), the tables of a lane's body and its joints: a hinge's
+# by its index among the hinges, a slide's among the slides.
+FK_TABLES = frozenset((
+    "fk_body", "body_pos", "body_quat", "body_jnt", "jnt_qadr", "jnt_dadr",
+    "jnt_hinge", "hinge_pos", "jnt_slide", "slide_axis", "slide_q0"))
+# The least bodies that the split must take off lane 0's chain: walker2d
+# and halfcheetah (3, a pair of legs on each of three levels) ran no faster
+# split, pushT (1) slower (PERF.md §6).
+FK_MIN_SAVED = 4
 
 
 def check_supported(sys: System) -> None:
@@ -142,16 +152,16 @@ def _int_type(values) -> str:
     return "int"
 
 
-def _runtime_tables(specs) -> list:
-    """The tables a lane reads at a run-time index (a body, dof, row or
-    task of its own), as one struct ``Tables``: its initial value
-    ``kTablesInit`` in device memory, which each block copies into its
-    shared ``tables`` at launch, and an accessor ``t_<name>`` over the
-    copy."""
+def _runtime_tables(specs, runtime) -> list:
+    """The tables named in ``runtime``, which a lane reads at a run-time
+    index (a body, dof, row or task of its own), as one struct ``Tables``:
+    its initial value ``kTablesInit`` in device memory, which each block
+    copies into its shared ``tables`` at launch, and an accessor
+    ``t_<name>`` over the copy."""
     fields, inits, accessors = [], [], []
     for spec in specs:
         name, kind, values = spec[:3]
-        if name not in RUNTIME_TABLES:
+        if name not in runtime:
             continue
         stride = spec[3] if len(spec) > 3 else 0
         vals = list(values) or [0]
@@ -191,6 +201,38 @@ def _lists(name: str, lists) -> list:
     flat = [x for lst in lists for x in list(lst) + [0] * (width - len(lst))]
     return [(f"n_{name}", "int", [len(lst) for lst in lists]),
             (name, "int", flat, width)]
+
+
+def fk_stages(sys: System) -> list:
+    """Forward kinematics' stages where the body tree branches: per depth
+    below the world, shallower first, its bodies split by the list of their
+    joints' kinds, each stage ``(depth, bodies)`` with its bodies in body
+    order. The kernel runs a stage a lane a body, with a barrier after the
+    last stage of a depth (``fk_levels`` in csrc/rollout.cu). Empty where
+    the stages take fewer than ``FK_MIN_SAVED`` bodies off the chain of
+    bodies that lane 0 would run (hopper and cartpole, chains, none;
+    walker2d and halfcheetah 3; pushT 1), whose forward kinematics stays on
+    lane 0. The rule reads the tree's shape only."""
+    def build():
+        body_joints = BT.topo(sys).body_joints
+        depth = [0] * sys.nbody
+        levels: Dict[int, Dict[tuple, list]] = {}
+        for b in range(1, sys.nbody):
+            depth[b] = depth[sys.body_parentid[b]] + 1
+            kinds = tuple(sys.jnt_type[j] for j in body_joints[b])
+            levels.setdefault(depth[b], {}).setdefault(kinds, []).append(b)
+        stages = [(d, bodies) for d in sorted(levels)
+                  for bodies in levels[d].values()]
+        return stages if sys.nbody - 1 - len(stages) >= FK_MIN_SAVED else []
+    return sys.cached("fk_stages", build)
+
+
+def fk_serial_stages(sys: System) -> int:
+    """The serial steps of a substep's forward kinematics in the kernel:
+    its stages where the split engages (none wider than a group: 5 bodies
+    at most, G 8 at least), else every body, one after another on lane
+    0."""
+    return len(fk_stages(sys)) or sys.nbody - 1
 
 
 def model_tables(sys: System, n_frames: int, reward,
@@ -245,10 +287,16 @@ def model_tables(sys: System, n_frames: int, reward,
               for i in range(nv)],
         dspring=[[s for s, j in enumerate(springs)
                   if sys.jnt_dofadr[j] == i] for i in range(nv)])
+    # the bodies of each stage of forward kinematics (none along a chain)
+    stages = fk_stages(sys)
+    lists.update(fk_body=[bodies for _, bodies in stages])
+    depths = [d for d, _ in stages]
     list_tables = [spec for key, lst in lists.items()
                    for spec in _lists(key, lst)]
     hinges = [j for j in range(nj) if sys.jnt_type[j] == HINGE]
+    slides = [j for j in range(nj) if sys.jnt_type[j] == SLIDE]
     init_q, jaxis = sys.host("init_q"), sys.host("jnt_axis")
+    jpos = sys.host("jnt_pos")
     dof_limj = [-1] * nv
     for l, j in enumerate(limj):
         dof_limj[sys.jnt_dofadr[j]] = l
@@ -284,7 +332,7 @@ def model_tables(sys: System, n_frames: int, reward,
                  NFRAMES=n_frames, NPAIR=len(sys.contact_pairs), NCON=ncon,
                  NLIMJ=len(limj), NC=nc,
                  NSPRING=len(springs), NSENSOR=len(sensors),
-                 NTRACK=len(track))
+                 NTRACK=len(track), NFK=len(stages))
     scalars = dict(
         kH=h, kInvH=recip32(h),
         kBetaInvH=f32(f32(BAUMGARTE_BETA) * recip32(h)),
@@ -375,13 +423,25 @@ def model_tables(sys: System, n_frames: int, reward,
         ("hinge_axis", "float", [x for j in hinges for x in jaxis[j]], 3),
         ("jnt_hinge", "int", [hinges.index(j) if j in hinges else -1
                               for j in range(nj)]),
+        ("hinge_pos", "float", [x for j in hinges for x in jpos[j]], 3),
+        ("jnt_slide", "int", [slides.index(j) if j in slides else -1
+                              for j in range(nj)]),
+        ("slide_axis", "float", [x for j in slides for x in jaxis[j]], 3),
+        ("slide_q0", "float", [init_q[sys.jnt_qposadr[j]] for j in slides]),
         ("mp_i", "int", [i for i, _ in mp]),
         ("mp_j", "int", [j for _, j in mp]),
         ("fac_start", "int", fac_start),
         ("fac_i", "int", [i for i, _ in fac]),
         ("fac_j", "int", [j for _, j in fac]),
+        # 1 after the last stage of forward kinematics at a depth, whose
+        # barrier the next depth's stages wait at (the last stage's is the
+        # substep's own)
+        ("fk_sync", "int", [int(d < e) for d, e in
+                            zip(depths, depths[1:] + depths[-1:])]),
     ] + list_tables
-    return dict(sizes=sizes, scalars=scalars, ints=ints, tables=tables)
+    runtime = RUNTIME_TABLES | (FK_TABLES if stages else frozenset())
+    return dict(sizes=sizes, scalars=scalars, ints=ints, tables=tables,
+                runtime=runtime)
 
 
 def model_header(env, G: int = 0) -> str:
@@ -400,7 +460,7 @@ def model_header(env, G: int = 0) -> str:
             for k, v in t["scalars"].items()]
     out += [""]
     out += [_table(*spec) for spec in t["tables"]]
-    out += _runtime_tables(t["tables"])
+    out += _runtime_tables(t["tables"], t["runtime"])
     return "\n".join(out)
 
 
@@ -599,12 +659,15 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
     (force cap not 0) in those substeps, summed over the rows
     (``rollout.contact_row_substeps``: the kernel's ``rows`` buffer, or
     the plain engine's count), so that their ratio is the mean number of
-    contact rows a live substep solves. A retiring rollout counts the
-    sample-steps it did not run (``rollout.retired_sample_steps``): on the
-    card N·H less the env steps the kernel counts as it runs them, in the
-    plain version that tail again. Either form gives every count but the
-    last the same value, and the launch is the same kernel whether counted
-    or not."""
+    contact rows a live substep solves; and the live substeps times the
+    serial steps of forward kinematics in the model's build
+    (``rollout.fk_stage_substeps``, ``fk_serial_stages``: the tree's
+    levels where it branches, its bodies along a chain), with no buffer of
+    its own. A retiring rollout counts the sample-steps it did not run
+    (``rollout.retired_sample_steps``): on the card N·H less the env steps
+    the kernel counts as it runs them, in the plain version that tail
+    again. Either form gives every count but the last the same value, and
+    the launch is the same kernel whether counted or not."""
     global LAUNCHES, DEMO_LAUNCHES, QS_LAUNCHES, SAMPLE_STEPS, \
         DEMO_SAMPLE_STEPS
     sys = env.sys
@@ -621,7 +684,7 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
                               rows=first)
         if first and retire:
             profiling.count("rollout.retired_sample_steps", _tail(out[-2], H))
-        return _counted(out, N, H, env.n_frames) if first else out
+        return _counted(out, N, H, env) if first else out
     if nu != sys.nu:
         raise ValueError(f"Y0s has {nu} controls, the model {sys.nu}")
     if Y0s.dtype != torch.float32:
@@ -652,7 +715,7 @@ def rollout_rewards_cuda(env, state0, Y0s: torch.Tensor,
         queue, out = out[-1], out[:-1]
         if first:
             profiling.count("rollout.retired_sample_steps", N * H - queue[1])
-    return _counted(out, N, H, env.n_frames) if first else out
+    return _counted(out, N, H, env) if first else out
 
 
 def check_retire(retire: bool, need_qs: bool, demo: bool,
@@ -671,18 +734,21 @@ def _tail(first: torch.Tensor, H: int) -> torch.Tensor:
     return torch.where(first >= 0, (H - 1) - first, 0).sum()
 
 
-def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int, n_frames: int
+def _counted(out: Tuple[torch.Tensor, ...], N: int, H: int, env
              ) -> Tuple[torch.Tensor, ...]:
     """Counts with the recorder, on the device, a rollout's sample-steps,
     its samples' env steps after their first flag and their live substeps
-    (from the first flags, the second last of ``out``) and the contact-row
+    (from the first flags, the second last of ``out``), those times the
+    serial steps of ``env``'s forward kinematics, and the contact-row
     substeps that acted in those (the last); the outputs without those
     two."""
     first, rows = out[-2:]
+    live = torch.where(first >= 0, first + 1, H).sum() * env.n_frames
     profiling.count("rollout.sample_steps", N * H)
     profiling.count("rollout.tail_sample_steps", _tail(first, H))
-    profiling.count("rollout.live_substeps",
-                    torch.where(first >= 0, first + 1, H).sum() * n_frames)
+    profiling.count("rollout.live_substeps", live)
+    profiling.count("rollout.fk_stage_substeps",
+                    live * fk_serial_stages(env.sys))
     profiling.count("rollout.contact_row_substeps", rows.sum())
     return out[:-2]
 

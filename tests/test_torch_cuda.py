@@ -380,8 +380,9 @@ def test_kernel_first_flag_matches_plain_version(card, name, N):
     """The kernel's first flagged env step and its acting contact-row
     substeps equal the plain version's, sample by sample, and some samples
     flag; while the recorder counts, the wrapper counts N·H sample-steps,
-    Σ H − 1 − first over the flagged samples, the live substeps and the
-    acting contact rows, summed on the card."""
+    Σ H − 1 − first over the flagged samples, the live substeps, those
+    times the serial steps of forward kinematics, and the acting contact
+    rows, summed on the card."""
     from mbd_tpu_torch.utils import profiling
 
     env, state0, Y0s = _first_flag_case(card, name, N)
@@ -400,11 +401,13 @@ def test_kernel_first_flag_matches_plain_version(card, name, N):
         rollout_cuda.rollout_rewards_cuda(env, state0, Y0s)
     counts = profiling.recorded().counts[0]
     profiling.clear()
+    live = int(torch.where(first >= 0, first + 1, H).sum()) * env.n_frames
+    stages = rollout_cuda.fk_serial_stages(env.sys)
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps":
                       int(((H - 1) - first[first >= 0]).sum()),
-                      "rollout.live_substeps": int(torch.where(
-                          first >= 0, first + 1, H).sum()) * env.n_frames,
+                      "rollout.live_substeps": live,
+                      "rollout.fk_stage_substeps": live * stages,
                       "rollout.contact_row_substeps": int(out[-1].sum())}
 
 
@@ -472,10 +475,13 @@ def test_retiring_form_matches_whole_form(card, name, N):
     counts = profiling.recorded().counts[0]
     profiling.clear()
     tail = int(((H - 1) - first[first >= 0]).sum())
+    stages = rollout_cuda.fk_serial_stages(env.sys)
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps": tail,
                       "rollout.retired_sample_steps": tail,
                       "rollout.live_substeps": ran * env.n_frames,
+                      "rollout.fk_stage_substeps":
+                      ran * env.n_frames * stages,
                       "rollout.contact_row_substeps": int(rows.sum())}
 
 

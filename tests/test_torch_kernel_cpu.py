@@ -139,14 +139,17 @@ inline int popc(unsigned m) { return __builtin_popcount(m); }
 # ragged tail's groups rolling sample N − 1 out again and writing
 # nothing), in slices filled with NaN first, so that a read before a write
 # shows in the output. The ``_rows`` entry points also take the rows
-# buffer, the others pass none.
+# buffer, the others pass none; ``cpu_rollout_kin`` also copies out each
+# sample's link poses and motion subspaces as its last substep left them
+# in its slice (kin [N, NB · 7 + NV · 6]: xpos [NB, 3], xquat [NB, 4],
+# S [NV, 6]).
 DRIVER = """
 }  // namespace
-extern "C" void cpu_rollout_rows(const float* q0, const float* qd0,
-                                 int per_sample, const float* U, float* rews,
-                                 float* bad, float* qs, const float* xref,
-                                 float* logpd, float* qd_out, int* first,
-                                 int* rows, int N, int H) {
+extern "C" void cpu_rollout_kin(const float* q0, const float* qd0,
+                                int per_sample, const float* U, float* rews,
+                                float* bad, float* qs, const float* xref,
+                                float* logpd, float* qd_out, int* first,
+                                int* rows, float* kin, int N, int H) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(W);
@@ -166,7 +169,21 @@ extern "C" void cpu_rollout_rows(const float* q0, const float* qd0,
                            first, rows, N, H);
       });
     for (auto& t : lanes) t.join();
+    for (int grp = 0; kin != nullptr && grp < W && w * W + grp < N; ++grp) {
+      float* k = kin + (w * W + grp) * (NB * 7 + NV * 6);
+      std::memcpy(k, slice[grp].xpos, sizeof slice[grp].xpos);
+      std::memcpy(k + NB * 3, slice[grp].xquat, sizeof slice[grp].xquat);
+      std::memcpy(k + NB * 7, slice[grp].S, sizeof slice[grp].S);
+    }
   }
+}
+extern "C" void cpu_rollout_rows(const float* q0, const float* qd0,
+                                 int per_sample, const float* U, float* rews,
+                                 float* bad, float* qs, const float* xref,
+                                 float* logpd, float* qd_out, int* first,
+                                 int* rows, int N, int H) {
+  cpu_rollout_kin(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out,
+                  first, rows, nullptr, N, H);
 }
 extern "C" void cpu_rollout(const float* q0, const float* qd0,
                             int per_sample, const float* U, float* rews,
@@ -255,6 +272,9 @@ def _cpu_kernel(env, out_dir, G):
     lib.cpu_rollout_retire_rows.argtypes = [ctypes.c_void_p] * 2 + \
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     lib.cpu_rollout_retire_rows.restype = None
+    lib.cpu_rollout_kin.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+    lib.cpu_rollout_kin.restype = None
     return lib
 
 
@@ -692,3 +712,109 @@ def test_kernel_source_counts_acting_contact_rows(name, tmp_path, libm_math):
     # rows act in some substeps and not in others
     assert 0 < int(rows.sum()) < int(live.sum()) * env.n_frames * \
         work.n_contacts
+
+
+def _bent(sys, gen):
+    """``_inputs`` with every hinge turned by an angle in (−1, 1) from its
+    init angle, so that every joint of forward kinematics moves its body."""
+    q, qd = _inputs(sys, gen)
+    for j in range(sys.njnt):
+        if sys.jnt_type[j] == HINGE:
+            q[sys.jnt_qposadr[j]] += torch.rand(N, generator=gen) * 2 - 1
+    return q.contiguous(), qd
+
+
+@pytest.mark.parametrize("G", [8, 16, 32])
+@pytest.mark.parametrize("name", ["humanoidrun", "ant", "humanoidtrack",
+                                  "pushT", "walker2d"])
+def test_kernel_source_fk_by_tree_level(name, G, tmp_path, libm_math,
+                                        monkeypatch):
+    """Forward kinematics a tree level a phase across the group's lanes
+    (``fk_levels``), on the branching trees: the humanoid (levels of 1, 3,
+    3, 2, 2, 2 bodies), ant (4 legs), humanoidtrack (its free root beside
+    five slid markers) and, split here although the rule keeps them on
+    lane 0 (``FK_MIN_SAVED``), pushT (a forest of three roots on slides)
+    and walker2d (2 legs), every hinge turned. One substep's link poses and
+    motion subspaces, as the substep left them in each sample's slice,
+    are the plain engine's ``fk_b`` of the initial state, and its rewards
+    and flags the plain version's, bit for bit (under ``libm_math``, for
+    the hinges' angles)."""
+    from mbd_tpu_torch.sim import batched as BT
+
+    env = envs.get_env(name, device="cpu")
+    env.n_frames = 1
+    if name in ("pushT", "walker2d"):
+        monkeypatch.setattr(rollout_cuda, "FK_MIN_SAVED", 1)
+        env.sys = env.sys.replace()       # a model with no stages cached
+    assert rollout_cuda.fk_stages(env.sys)
+    lib = _cpu_kernel(env, str(tmp_path), G)
+    sys, nb, nv = env.sys, env.sys.nbody, env.sys.nv
+    gen = torch.Generator().manual_seed(0)
+    q0, qd0 = _bent(sys, gen)
+    Y0s = 2 * torch.rand((N, 1, env.action_size), generator=gen) - 1
+    U = Y0s.permute(1, 2, 0).contiguous()
+    rews, bad = torch.empty((1, N)), torch.empty(N)
+    kin = torch.empty((N, nb * 7 + nv * 6))
+    lib.cpu_rollout_kin(q0.data_ptr(), qd0.data_ptr(), 1, U.data_ptr(),
+                        rews.data_ptr(), bad.data_ptr(), None, None, None,
+                        None, None, None, kin.data_ptr(), N, 1)
+    plain = BT.fk_b(sys, q0)
+    xpos, xquat, S = kin.split([nb * 3, nb * 4, nv * 6], dim=1)
+    for got, want in ((xpos.reshape(N, nb, 3), plain.xpos),
+                      (xquat.reshape(N, nb, 4), plain.xquat),
+                      (S.reshape(N, nv, 6), plain.S)):
+        want = torch.stack(want).permute(2, 0, 1)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
+    out = rollout_outputs(env, state, Y0s)
+    assert torch.equal(rews.t().contiguous().view(torch.int32),
+                       out[0].contiguous().view(torch.int32))
+    assert torch.equal(bad, out[1])
+
+
+# the serial steps of forward kinematics a substep: the tree's levels
+# where the split engages, else its bodies one after another
+FK_STAGES = {"hopper": 4, "cartpole": 2, "walker2d": 7, "halfcheetah": 7,
+             "ant": 4, "humanoidrun": 6, "humanoidstandup": 6,
+             "humanoidtrack": 7, "pushT": 3}
+
+
+@pytest.mark.parametrize("name", list(FK_STAGES))
+def test_fk_stages_follow_the_tree(name):
+    """The header's stages of forward kinematics (``fk_stages``): none
+    along a chain (hopper, cartpole), nor where the stages would take
+    fewer than ``FK_MIN_SAVED`` bodies off lane 0's chain (walker2d and
+    halfcheetah 3, pushT 1), whose builds keep ``fk`` on lane 0 with no
+    table of it in shared memory; where the split engages, each depth's
+    bodies split by their joints' kinds (humanoidtrack's free root beside
+    its five slid markers), every parent one depth up, a barrier after
+    each depth's last stage but the deepest; and the serial steps the
+    counter reads."""
+    env = envs.get_env(name, device="cpu")
+    sys = env.sys
+    stages = rollout_cuda.fk_stages(sys)
+    header = rollout_cuda.model_header(env)
+    assert rollout_cuda.fk_serial_stages(sys) == FK_STAGES[name]
+    assert f"#define NFK {len(stages)}" in header
+    if name in ("hopper", "cartpole", "walker2d", "halfcheetah", "pushT"):
+        assert stages == []
+        assert "t_fk_body" not in header and "t_body_pos" not in header
+        return
+    assert "t_fk_body" in header and "t_hinge_pos" in header
+    assert sys.nbody - 1 - len(stages) >= rollout_cuda.FK_MIN_SAVED
+    depth = {0: 0}
+    for b in range(1, sys.nbody):
+        depth[b] = depth[sys.body_parentid[b]] + 1
+    seen = [b for _, bodies in stages for b in bodies]
+    assert sorted(seen) == list(range(1, sys.nbody))
+    kinds = rollout_cuda.BT.topo(sys).body_joints
+    for d, bodies in stages:
+        assert {depth[b] for b in bodies} == {d}
+        assert len({tuple(sys.jnt_type[j] for j in kinds[b])
+                    for b in bodies}) == 1
+    assert [d for d, _ in stages] == sorted(d for d, _ in stages)
+    assert max(len(bodies) for _, bodies in stages) >= 2
+    sync = dict((t[0], t[2]) for t in rollout_cuda.model_tables(
+        sys, env.n_frames, env.kernel_reward)["tables"])["fk_sync"]
+    assert sync == [int(a[0] < b[0]) for a, b in zip(stages, stages[1:])] \
+        + [0]

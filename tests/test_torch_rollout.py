@@ -174,7 +174,7 @@ def test_model_header_hopper():
                                       env.kernel_reward)["sizes"]
     assert sizes == dict(NQ=6, NV=6, NU=3, NB=5, NJ=6, NFRAMES=20, NPAIR=7,
                          NCON=11, NLIMJ=3, NC=17, NSPRING=0, NSENSOR=1,
-                         NTRACK=0)
+                         NTRACK=0, NFK=0)
     header = rollout_cuda.model_header(env)
     assert "#define NC 17" in header
     assert "constexpr int kReward = 0;" in header        # progress
@@ -225,7 +225,7 @@ def test_model_header_pusht():
     t = rollout_cuda.model_tables(env.sys, env.n_frames, env.kernel_reward)
     assert t["sizes"] == dict(NQ=8, NV=8, NU=2, NB=4, NJ=8, NFRAMES=5,
                               NPAIR=2, NCON=2, NLIMJ=6, NC=14, NSPRING=0,
-                              NSENSOR=0, NTRACK=0)
+                              NSENSOR=0, NTRACK=0, NFK=0)
     tables = {spec[0]: spec[2] for spec in t["tables"]}
     assert tables["pair_kind"] == [t["ints"]["kSphereBox"]] * 2
     np.testing.assert_array_equal(

@@ -106,6 +106,7 @@ def test_counters_only_when_asked():
     assert profiling.recorded().counts == {0: {
         "rollout.sample_steps": 8, "rollout.tail_sample_steps": 0,
         "rollout.live_substeps": 8 * env.n_frames,
+        "rollout.fk_stage_substeps": 8 * env.n_frames * 4,
         "rollout.contact_row_substeps": int(rows.sum())}}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
@@ -191,7 +192,8 @@ def test_plan_counts_its_sample_steps_and_tail(plans):
     assert rec.counts == {0: {"rollout.sample_steps": steps,
                               "rollout.tail_sample_steps": 0,
                               "rollout.retired_sample_steps": 0,
-                              "rollout.live_substeps": steps * 20}}
+                              "rollout.live_substeps": steps * 20,
+                              "rollout.fk_stage_substeps": steps * 20 * 4}}
     assert 0 < rows < steps * 20 * 4
 
 
@@ -312,10 +314,11 @@ def test_plain_first_flag_of_whole_env_steps():
     assert len(out) == 2 and torch.equal(out[0], rews)
     tail = int(((H - 1) - first[first >= 0]).sum())
     rows = rollout_outputs(env, state0, Y, rows=True)[-1]
+    live = int(torch.where(first >= 0, first + 1, H).sum()) * env.n_frames
     assert counts == {"rollout.sample_steps": N * H,
                       "rollout.tail_sample_steps": tail,
-                      "rollout.live_substeps": int(torch.where(
-                          first >= 0, first + 1, H).sum()) * env.n_frames,
+                      "rollout.live_substeps": live,
+                      "rollout.fk_stage_substeps": live * 6,
                       "rollout.contact_row_substeps": int(rows.sum())}
 
 
@@ -404,6 +407,40 @@ def test_plan_counts_its_live_substeps_and_acting_contact_rows(
     assert counts["rollout.live_substeps"] == want["live"]
     assert want["live"] < counts["rollout.sample_steps"] * env.n_frames
     assert counts["rollout.contact_row_substeps"] == want["rows"] > 0
+
+
+@pytest.mark.parametrize("name,stages", [("humanoidrun", 6), ("hopper", 4)])
+def test_wrapper_counts_fk_stages_only_while_recording(name, stages):
+    """``rollout.fk_stage_substeps``: nothing outside the recorder, and
+    with it the live substeps times the serial steps of the model's forward
+    kinematics, the humanoid's 6 tree levels and hopper's 4 bodies along
+    its chain, from the fixture's humanoid states, some of which flag."""
+    env = envs.get_env(name, device="cpu")
+    env.n_frames = 1
+    if name == "humanoidrun":
+        d = F.fixture(name)
+        state0 = SimpleNamespace(pipeline_state=SimpleNamespace(
+            q=torch.from_numpy(np.ascontiguousarray(d["q"][:8].T)),
+            qd=torch.from_numpy(np.ascontiguousarray(d["qd"][:8].T))))
+    else:
+        state0 = env.reset(torch.Generator().manual_seed(0))
+    Y = torch.rand((8, 2, env.action_size),
+                   generator=torch.Generator().manual_seed(1)) * 2 - 1
+    profiling.clear()
+    rollout_cuda.rollout_rewards_cuda(env, state0, Y)
+    with profiling.recording():
+        rollout_cuda.rollout_rewards_cuda(env, state0, Y)
+    assert profiling.recorded().counts == {}
+    with profiling.recording(counters=True):
+        rollout_cuda.rollout_rewards_cuda(env, state0, Y)
+    counts = profiling.recorded().counts[0]
+    profiling.clear()
+    live = counts["rollout.live_substeps"]
+    assert counts["rollout.fk_stage_substeps"] == live * stages
+    if name == "humanoidrun":
+        assert 0 < live < 8 * 2
+    else:
+        assert live == 8 * 2
 
 
 def test_wrapper_refuses_retire_past_the_flag():
