@@ -12,15 +12,13 @@ Phases, each of which raises on failure (exit code 1):
    registers and local bytes per thread, resident warps per SM, SMs in
    use);
 2. while they build, the plain version (the torch engine) on the card on
-   the inputs of every comparison, recording the constraint rows that
-   act (``utils/work.py::acting_rows``): each kernel's bound counts what
-   those inputs need, ``utils/work.py``'s fixed ``WORK`` per sample and
-   env step less ``ROW_WORK`` for each idle row (their CPU test holds
-   the live counts equal to the tables), and the bound lines print the
-   bound of ``WORK`` beside it,
-   but the paths' own: all nine models at N = 2048, H = 4; hopper at a
-   ragged N = 2047 and with the position trace (``need_qs``); walker2d
-   with per-sample initial states; humanoidrun at a ragged N = 8191 and
+   the inputs of every comparison but the paths' own (each kernel's bound
+   counts ``benchmark/work/count.py``'s ``WORK`` per sample and env step,
+   every constraint row as the plain version solves them all, and a
+   launch's bytes, ``launch_bytes``, over the card's peaks, ``least_s``):
+   all nine models at N = 2048, H = 4; hopper at a ragged N = 2047 and
+   with the position trace (``need_qs``); walker2d with per-sample
+   initial states; humanoidrun at a ragged N = 8191 and
    with per-sample initial states; humanoidtrack at a ragged N = 2047 with
    the trace and the demo log-density (``demo``), and with per-sample
    initial states and the demo; pushT with per-sample initial states whose
@@ -44,8 +42,8 @@ Phases, each of which raises on failure (exit code 1):
    ``retire`` output at each path's shape without the demo and at the two
    shapes above: flags and first flags equal, the NaN of fixed bits after
    each first flag, the other rewards to atol 1e-5, the queue's counts;
-   timed beside the whole form, its bound the work of the sample-steps it
-   runs:
+   timed beside the whole form, its bound the ``WORK`` of the
+   sample-steps it runs:
    - hopper: ``envs.get_env("hopper", device="cuda")`` → ``mbd.plan`` at
      ``recommended_config("hopper")`` (2048 / 50 / 100), seed 0, to a
      clean final reward of at least 1.8, compared at N = 2048, H = 50;
@@ -145,25 +143,19 @@ Phases, each of which raises on failure (exit code 1):
    (``mbd_tpu_torch/assets/mnist_jax.json``), no kernel launched; then the
    explainer's and the 1-D demo's numerics on the card against the CPU,
    to 1e-6 (nothing drawn);
-11. the bench, ``python -m mbd_tpu_torch.bench --cell hopper --cell
-   humanoidrun_n1024 --Ndiffuse 12 --Hsample 10``, in a subprocess,
-   checked by ``bench.short_run``: its line parsed, every cell
-   ``correct`` with every field and its parity, the cuts listed in
-   ``reduced``, its ``mfu`` and the kernel's ``roofline_share`` in
-   (0, 1.05], 12 launches a plan;
-12. one JSON line with the analytic path's numbers and each phase's wall
+11. one JSON line with the analytic path's numbers and each phase's wall
    (``utils/profiling.py``'s ``Timer``), one with RL's, one with the
-   mesh's, MNIST's and the explainer's, the bench's line, one with the
-   kernels' numbers
+   mesh's, MNIST's and the explainer's, one with the kernels' numbers
    (with each baseline's launches, final reward and wall, each batched
    path's, the viewer's, the resume's and the mesh's launches, the
    state-out mode's, and the retiring form's at each of its shapes), then
    the device line.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; comparison launches are not counted. It needs one CUDA
-card and the repository beside it; without either it exits with a
-non-zero code and prints no result.
+read just after; comparison launches are not counted. It times no plan
+for the record: the benchmark (``python3 benchmark/run.py``) does. It
+needs one CUDA card and the repository beside it; without either it exits
+with a non-zero code and prints no result.
 """
 
 from __future__ import annotations
@@ -226,6 +218,17 @@ def ptxas_summary(report: str) -> str:
     return " | ".join(lines)
 
 
+def bound_ms(ops, nbytes):
+    """The least time the card could take for ``ops`` operations that
+    move ``nbytes`` (``benchmark/work/count.py::least_s``): (ms,
+    "operations" or "bytes", whichever bounds it)."""
+    from benchmark.work import count
+
+    by = "operations" if ops / count.PEAK_FLOPS >= \
+        nbytes / count.PEAK_BYTES else "bytes"
+    return count.least_s(ops, nbytes) * 1e3, by
+
+
 def time_ms(torch, fn, reps):
     """Mean ms of ``reps`` calls of ``fn`` by CUDA events, and the last
     call's result."""
@@ -256,7 +259,6 @@ class Case:
         flagged env step (−1: none) is kept in ``self.first``."""
         from mbd_tpu_torch.rollout import replay
         from mbd_tpu_torch.rollout.fused import rollout_outputs
-        from mbd_tpu_torch.utils.work import acting_rows
 
         self.name, self.N, self.H, self.per_sample = name, N, H, per_sample
         self.need_qs, self.demo, self.timed = need_qs, demo, timed
@@ -287,22 +289,20 @@ class Case:
                                     device="cuda") - 1.0
         if path is not None:
             self.Y0s[0] = plan
-        # the plain version's outputs, and the constraint rows that acted
+        # the plain version's outputs
         self.flags = None
         if flags:
-            def plain():
-                rec = replay.first_flags(env, state0, self.Y0s, trace=True)
-                return (rec.rews, rec.bad), rec
-
-            self.plain_ms, ((self.plain, self.flags), self.rows) = time_ms(
-                torch, lambda: acting_rows(plain), 1)
+            self.plain_ms, self.flags = time_ms(
+                torch, lambda: replay.first_flags(env, state0, self.Y0s,
+                                                  trace=True), 1)
+            self.plain = (self.flags.rews, self.flags.bad)
             first = self.flags.first
             self.first = torch.where(first >= 0, first // env.n_frames, -1)
         else:
-            self.plain_ms, (out, self.rows) = time_ms(
-                torch, lambda: acting_rows(rollout_outputs, env, state0,
-                                           self.Y0s, need_qs, demo,
-                                           first=True, retire=retire), 1)
+            self.plain_ms, out = time_ms(
+                torch, lambda: rollout_outputs(env, state0, self.Y0s,
+                                               need_qs, demo, first=True,
+                                               retire=retire), 1)
             self.plain, self.first = out[:-1], out[-1]
 
     def modes(self):
@@ -317,32 +317,25 @@ class Case:
                 f"{self.per_sample} modes={modes}{census}")
 
     def bytes(self):
-        """What the kernel must move (``utils/work.py::rollout_bytes``)."""
-        from mbd_tpu_torch.utils.work import rollout_bytes
+        """What a launch must move (``benchmark/work/count.py``'s
+        ``launch_bytes``)."""
+        from benchmark.work import count
 
-        return rollout_bytes(self.env, self.N, self.H, self.per_sample,
-                             self.need_qs, self.demo)
+        sys_ = self.env.sys
+        return count.launch_bytes(sys_.nq, sys_.nv, sys_.nu, self.N, self.H)
 
     def ops_per_sample_step(self):
-        """What these inputs need per sample and step: ``WORK`` less
-        ``ROW_WORK`` for each row the plain run saw idle
-        (``utils/work.py::needed_per_sample_step``)."""
-        from mbd_tpu_torch.utils.work import needed_per_sample_step
+        """``benchmark/work/count.py``'s ``WORK``: every constraint row,
+        as the plain version solves them all."""
+        from benchmark.work import count
 
-        return needed_per_sample_step(self.name, self.demo, self.rows,
-                                      self.N * self.H)
+        return count.WORK[self.name, self.demo]
 
-    def bound(self, every_row=False):
-        """The least time the card could take for what these inputs need
-        (``utils/work.py::rollout_bound``), or with ``every_row`` for
-        ``WORK`` (every row solved, as the plain version does); (ms, which
-        of operations or bytes bounds it)."""
-        from mbd_tpu_torch.utils.work import rollout_bound
-
-        return rollout_bound(self.env, self.name, self.N, self.H,
-                             self.per_sample, self.need_qs, self.demo,
-                             None if every_row else
-                             self.ops_per_sample_step())
+    def bound(self):
+        """The least time the card could take for these inputs
+        (``bound_ms``); (ms, which of operations or bytes bounds it)."""
+        return bound_ms(self.ops_per_sample_step() * self.N * self.H,
+                        self.bytes())
 
     def check(self, torch, rc, reps=3):
         """The kernel on the same inputs: max |Δ| over its outputs, its
@@ -370,7 +363,6 @@ class Case:
             self.env, self.state0, self.Y0s, self.need_qs, self.demo), reps)
         bound_ms, bound_by = self.bound()
         shown = ", ".join(f"max|Δ{k}| {v:.3g}" for k, v in errs.items())
-        r = self.rows
         tail = ""
         if self.flags is not None:
             from mbd_tpu_torch.rollout.replay import summary
@@ -382,9 +374,7 @@ class Case:
         print(f"check {self.label()}: {shown} (atol {ATOL:g}), flags equal, "
               f"{int(out[1].sum())} flagged{tail}; kernel {ms:.3f} ms, plain "
               f"{self.plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; rows acting: {r.contacts_acting} of "
-              f"{r.contacts} contact, {r.limits_acting} of {r.limits} "
-              f"limit)", flush=True)
+              f"({bound_by})", flush=True)
         return err, ms, bound_ms, bound_by
 
     def check_retire(self, torch, rc, reps=3):
@@ -394,11 +384,9 @@ class Case:
         ``RETIRED_BITS``, the others to ATOL, every sample taken from the
         queue once and the env steps the kernel counts those up to each
         first flag. Its ms, the whole form's on the same inputs, and its
-        bound: the operations of the sample-steps it runs (those per
-        sample-step of ``ops_per_sample_step``, which the plain version
-        recorded over the whole rollout) and the bytes of a launch."""
+        bound: the operations of the sample-steps it runs
+        (``ops_per_sample_step`` each) and the bytes of a launch."""
         from mbd_tpu_torch.rollout.fused import RETIRED_BITS
-        from mbd_tpu_torch.utils.work import bound_ms
 
         env, N, H = self.env, self.N, self.H
         first = self.first.to(torch.int32)
@@ -1093,8 +1081,9 @@ def drive_rl_step(torch, envs, rc, fused, gpu):
     """The state-out mode against the plain engine on the card, bit for
     bit (q', qd', rewards, flags), on hopper, pushT and humanoidrun at
     B = 1, 8, 128 and 2048 from per-sample states with flagged samples;
-    timed at RL_TIMED's B, with its bound."""
-    from mbd_tpu_torch.utils import work
+    timed at RL_TIMED's B, with its bound (``benchmark/work/count.py``'s
+    ``WORK`` a sample)."""
+    from benchmark.work import count
 
     out = {}
     for name in RL_STEP_ENVS:
@@ -1105,9 +1094,8 @@ def drive_rl_step(torch, envs, rc, fused, gpu):
             q, qd = rl_states(torch, env, gen, B)
             u = 2.0 * torch.rand((env.action_size, B), generator=gen,
                                  device="cuda") - 1.0
-            plain_ms, (plain, rows) = time_ms(
-                torch, lambda: work.acting_rows(fused.env_step_outputs, env,
-                                                q, qd, u), 1)
+            plain_ms, plain = time_ms(
+                torch, lambda: fused.env_step_outputs(env, q, qd, u), 1)
             got = rc.env_step_cuda(env, q, qd, u)
             torch.cuda.synchronize()
             diff = [k for k, a, b in zip(("q", "qd", "reward", "bad"), got,
@@ -1128,11 +1116,11 @@ def drive_rl_step(torch, envs, rc, fused, gpu):
             ms, _ = time_ms(torch, lambda: rc.env_step_cuda(env, q, qd, u),
                             50)
             floats = B * (2 * (sys_.nq + sys_.nv) + sys_.nu + 2)
-            ops = work.needed_per_sample_step(name, False, rows, B) * B
-            bound_ms, bound_by = work.bound_ms(ops, 4 * floats)
+            ops = count.WORK[name, False] * B
+            bound, bound_by = bound_ms(ops, 4 * floats)
             out[name] = dict(
                 B=B, ms=ms, max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms=bound, bound_by=bound_by,
                 operations=ops, bytes=4 * floats)
             print(f"  state-out {name} B={B}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.1f} ms, bound {out[name]['bound_ms']:.6f} ms "
@@ -1604,34 +1592,6 @@ def drive_explainer(torch, gpu):
     return dict(max_abs_err=err, wall_s=wall)
 
 
-# The bench's phase: two cells, the diffusion cut to 12 steps and the
-# horizon to 10 (its plain engine then checks the last step in seconds)
-BENCH_CELLS = ("hopper", "humanoidrun_n1024")
-BENCH_NDIFFUSE, BENCH_HSAMPLE = 12, 10
-
-
-def drive_bench(torch, gpu):
-    """``python -m mbd_tpu_torch.bench`` on ``BENCH_CELLS``, cut, checked by
-    ``bench.short_run`` (each cell correct with every field, its parity,
-    the cuts in ``reduced``, Ndiffuse launches a plan, ``mfu`` and the
-    kernel's roofline share in (0, 1.05]); returns the line."""
-    from mbd_tpu_torch import bench
-
-    line = bench.short_run(BENCH_CELLS, BENCH_NDIFFUSE, BENCH_HSAMPLE)
-    for name, cell in line["cells"].items():
-        layer = cell["per_layer"]
-        print(f"bench {name}: wall {cell['wall_s']:.4f} s, mfu "
-              f"{cell['mfu']:.6f}, kernel {layer['kernel_ms_per_launch']:.4f}"
-              f" ms a launch against a bound of "
-              f"{layer['bound_ms_per_launch']:.4f} (roofline share "
-              f"{layer['roofline_share']:.6f}; rows acting "
-              f"{cell['rows_acting']}), busy share "
-              f"{layer['busy_share']:.6f}, {layer['launches']} launches, "
-              f"parity max|Δ| {cell['parity']['max_abs_err']:.3g}, reduced "
-              f"{cell['reduced']} on {gpu}", flush=True)
-    return line
-
-
 def main() -> int:
     import torch
 
@@ -1648,7 +1608,7 @@ def main() -> int:
     from mbd_tpu_torch.planners import mbd
     from mbd_tpu_torch.planners import path_integral as pi
     from mbd_tpu_torch.rollout import fused
-    from mbd_tpu_torch.utils import profiling, work
+    from mbd_tpu_torch.utils import profiling
     import seed_quality as sq
 
     t_start = time.perf_counter()
@@ -1787,10 +1747,7 @@ def main() -> int:
             st.update(ms=ms, plain_ms=case.plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, shape=f"{case.N}x{case.H}",
                       operations=case.ops_per_sample_step() * case.N
-                      * case.H,
-                      every_row=(work.WORK[case.name, case.demo] * case.N
-                                 * case.H, case.bound(every_row=True)[0]),
-                      bytes=case.bytes())
+                      * case.H, bytes=case.bytes())
 
     for future in as_completed(builds):
         name = builds[future]
@@ -1879,7 +1836,6 @@ def main() -> int:
     mesh = phase("mesh", drive_mesh, gpu)
     others = dict(mnist=phase("mnist", drive_mnist, sq, gpu),
                   explainer=phase("explainer", drive_explainer, gpu))
-    bench = phase("bench", drive_bench, gpu)
     walls = timer.as_dict()
     print(f"smoke: {time.perf_counter() - t_start:.0f} s on {gpu}",
           flush=True)
@@ -1891,10 +1847,7 @@ def main() -> int:
         st = stats[name]
         print(f"bound {name} {st['shape']}: {st['operations']:.0f} "
               f"operations, {st['bytes']} bytes → {st['bound_ms']:.4f} ms "
-              f"({st['bound_by']}; counting every row as the plain version "
-              f"does, {st['every_row'][0]} operations → "
-              f"{st['every_row'][1]:.4f} ms); kernel {st['ms']:.3f} ms",
-              flush=True)
+              f"({st['bound_by']}); kernel {st['ms']:.3f} ms", flush=True)
     # the analytic path (car2d, bbo) launches no kernel: its numbers and
     # every phase's wall on a line of their own
     print(json.dumps(dict(analytic, phase_walls_s=walls)))
@@ -1907,8 +1860,6 @@ def main() -> int:
     # the mesh (each case's launches, samples and walls per rank), MNIST
     # and the explainer, which launch no kernel
     print(json.dumps(dict(mesh=mesh, **others)))
-    # the bench's own line (two cells, the diffusion cut)
-    print(json.dumps(bench))
     order = ("base", "need_qs", "demo")
     print(json.dumps({"kernels": [{
         "name": f"rollout[{name}]", "route": "cuda",

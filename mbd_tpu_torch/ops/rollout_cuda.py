@@ -70,7 +70,7 @@ QS_LAUNCHES = 0
 STATE_LAUNCHES = 0
 # The sample-steps (N·H per call) rolled out, by the kernel or, on a CPU
 # tensor, by its plain version; of those, the ones with demo=True. A
-# plan's work is Σ utils/work.py's WORK · sample-steps.
+# plan's work is Σ benchmark/work/count.py's WORK · sample-steps.
 SAMPLE_STEPS = 0
 DEMO_SAMPLE_STEPS = 0
 # The kernel indexes its arrays with 32-bit ints: the largest, qs's

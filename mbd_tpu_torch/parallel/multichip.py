@@ -7,8 +7,8 @@ counterpart of the JAX package's ``dryrun_multichip`` hook
 
 K (default: every card of the machine) must be at least 2 and at most the
 card count; otherwise the module says why and exits with 2. The cases
-(``CASES``; ``--case`` repeatable, default all), each at the config of a
-cell of ``mbd_tpu_torch.bench``:
+(``CASES``; ``--case`` repeatable, default all), each at its model's
+recommended config (``recommended_config``):
 
 - ``dryrun``: one reverse step of humanoidrun at 8192 × 50 (JAX's hook at
   the flagship's width, which JAX could only lower);
@@ -181,21 +181,18 @@ class Case:
                           "final_diverged") if hasattr(res, k)}
 
 
-def _bench_cfg(cell: str):
-    from ..bench import CELLS
-
-    return CELLS[cell].cfg
-
-
 def cases() -> Dict[str, Case]:
-    """The cases by name, at their bench cells' configs."""
+    """The cases by name, at their models' recommended configs."""
+    humanoidrun = mbd.recommended_config("humanoidrun")
     return {
-        "dryrun": Case("humanoidrun", "step", _bench_cfg("humanoidrun")),
-        "humanoidrun": Case("humanoidrun", "plan", _bench_cfg("humanoidrun")),
-        "hopper_seeds8": Case("hopper", "plan", _bench_cfg("hopper_seeds8"),
-                              seeds=8),
+        "dryrun": Case("humanoidrun", "step", humanoidrun),
+        "humanoidrun": Case("humanoidrun", "plan", humanoidrun),
+        "hopper_seeds8": Case("hopper", "plan",
+                              mbd.recommended_config("hopper"), seeds=8),
         "humanoidtrack_demo": Case("humanoidtrack", "plan",
-                                   _bench_cfg("humanoidtrack_demo")),
+                                   mbd.recommended_config(
+                                       "humanoidtrack",
+                                       mbd.MBDConfig(enable_demo=True))),
         "hopper_mppi": Case("hopper", "mppi", pi.recommended_config(
             "hopper", pi.PathIntegralConfig(update_method="mppi"))),
         "pushT_ppo": Case("pushT", "ppo", ppo.PPOConfig(**dict(

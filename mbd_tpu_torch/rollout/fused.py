@@ -37,7 +37,7 @@ def rollout_qs(sys, n_frames: int, q0: torch.Tensor, qd0: torch.Tensor,
     (force cap not 0) in the env steps that started with it unflagged [N]
     (int32), as the kernel writes them into its rows buffer, from the
     engine's row log (``sim/batched.py``'s ``ROW_LOG``, whose entries an
-    enclosing ``utils/work.py::acting_rows`` keeps)."""
+    enclosing caller's log keeps, as ``tests/test_torch_work.py`` does)."""
     q, qd = q0, qd0
     bad = torch.zeros_like(q0[0])
     first_flag = torch.full(bad.shape, -1, dtype=torch.int32,

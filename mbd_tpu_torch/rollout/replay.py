@@ -76,8 +76,8 @@ EDGE = {("humanoidrun", 1): {"cpu": 1.791351, "cuda": 6.170166},
 EDGE_STATES = os.path.join(ROOT, "mbd_tpu_torch", "assets",
                            "humanoidrun_edge.npz")
 # The card's flagged and clean humanoid states on the last step of the
-# bench's humanoid cells, and one substep's margins from each
-# (``tests/torch_flag_check.py --card``).
+# humanoid plans of ``tests/torch_flag_check.py --card``, and one
+# substep's margins from each.
 FLAG_STATES = os.path.join(ROOT, "mbd_tpu_torch", "assets",
                            "humanoid_flags.npz")
 

@@ -582,8 +582,8 @@ def collide_b(sys: System, kin: KinB) -> List[ContactB]:
 # constraint rows (force cap not 0, the rows the kernel solves; a NaN cap
 # acts) as (contacts acting, contact rows, limits acting, limit rows), the
 # acting counts per sample as [N] tensors, the rows Python ints (rows ·
-# samples). ``utils/work.py::acting_rows`` and ``rollout/fused.py::
-# rollout_qs`` set and read it.
+# samples). ``rollout/fused.py::rollout_qs`` and the work table's tests
+# (``tests/test_torch_work.py``) set and read it.
 ROW_LOG: Optional[list] = None
 
 
@@ -600,7 +600,8 @@ def _contact_dirs(S_st: Arr, pos_st: Arr, nrm_st: Arr, v_rel: Arr,
                   vn_c: Arr, mu_st: Arr, sgn_c: Arr, eps: float):
     """The contact points' Jacobian rows and force-direction rows (normal
     less μ times the unit slip): work that a row whose cap is 0 does not
-    need (the kernel skips it, ``utils/work.py::ROW_WORK`` counts it)."""
+    need (the kernel skips it, ``benchmark/work/count.py::ROW_WORK``
+    counts it)."""
     vt = v_rel - vn_c[:, None] * nrm_st
     t_dir = vt / torch.sqrt(dot3_c(vt, vt) + eps * eps)[:, None]
     d = nrm_st - mu_st[:, :, None] * t_dir

@@ -331,20 +331,6 @@ def test_multichip_dryrun_and_exact_gather(card):
     assert report["ok"]
 
 
-@pytest.mark.cuda
-def test_bench_hopper_short(card):
-    """``python -m mbd_tpu_torch.bench --cell hopper --Ndiffuse 6
-    --Hsample 10``, checked by ``bench.short_run``: one line, the cell
-    correct with its parity, 6 launches (5 steps and the final
-    selection), the cuts in ``reduced``, the mfu and the kernel's roofline
-    share in (0, 1.05]."""
-    from mbd_tpu_torch import bench
-
-    line = bench.short_run(("hopper",), 6, 10)
-    assert line["cells"]["hopper"]["reduced"] == [
-        "Hsample 10 (published 50)", "Ndiffuse 6 (published 100)"]
-
-
 def _first_flag_case(card, name, N, H=10):
     """(env, per-sample state, Y0s) whose rollouts flag: humanoidrun from
     the card's humanoid states of ``assets/humanoid_flags.npz`` (their

@@ -5,13 +5,14 @@ humanoid states held against the reference's engine, on the CPU.
 where each sample first leaves the validity envelope; its flags must be
 ``rollout_outputs``' and each sample's record the one it gets alone.
 ``mbd_tpu_torch/assets/humanoid_flags.npz`` holds flagged and clean states
-of the last reverse step of the bench's humanoidrun and humanoidtrack_demo
-cells on the card, each with the card's margins after one substep
-(``tests/torch_flag_check.py --card``): one substep of the port's engine
-here and one eager substep of JAX's, batched over a model's states, must
-give the card's verdict (``torch_flag_check.judge``: |qd| within 0.2, the
-root within 1e-4 m; a state that close to its limit on the card is an
-edge state, not judged).
+of the last reverse step of ``torch_flag_check``'s humanoidrun and
+humanoidtrack_demo cells on the card, each with the card's margins after
+one substep (``tests/torch_flag_check.py --card``): one substep of the
+port's engine here and one eager substep of JAX's, batched over a model's
+states, must give the card's verdict (``torch_flag_check.judge``: |qd|
+within 0.2, the root within 1e-4 m; a state that close to its limit on
+the card is an edge state, not judged). The last step it rebuilds from a
+plan (``torch_flag_check.last_step``) is the plan's own.
 """
 
 from types import SimpleNamespace
@@ -23,6 +24,7 @@ import torch
 import torch_flag_check as F
 from mbd_tpu_torch import envs
 from mbd_tpu_torch.rollout import replay
+from mbd_tpu_torch.planners import mbd
 from mbd_tpu_torch.rollout.fused import rollout_outputs
 
 FIELDS = ("first", "root", "speed", "low", "dof", "peak", "peak_at",
@@ -143,3 +145,44 @@ def test_card_states_flag_alike_in_both_engines(model, engine):
     assert bad.size == 0, [(int(d["sample"][j]), d["qd_margin"][j],
                             got[0][j], d["root_margin"][j], got[1][j])
                            for j in bad]
+
+
+@pytest.mark.parametrize("name", ["car2d", "cartpole"])
+def test_last_step_samples_are_the_plans(name):
+    """The samples ``torch_flag_check`` rebuilds are the plan's last
+    step's: their mean reward, as the planner forms it, is the plan's last
+    trace entry, bit for bit (car2d's reset draws nothing, cartpole's
+    draws first)."""
+    env = envs.get_env(name, device="cpu")
+    cfg = mbd.MBDConfig(Nsample=8, Hsample=4, Ndiffuse=4,
+                        enable_demo=name == "car2d")
+    res = mbd.plan(env, cfg, torch.Generator().manual_seed(3))
+    samples = F.last_step_samples(env, cfg, 3, res.Ybars)
+    assert samples.shape == (8, 4, env.action_size)
+    state = env.reset(torch.Generator().manual_seed(3))
+    out = mbd.rollout_batch(env, mbd.batch_states(env, [state], 8), samples)
+    rew_mean = mbd.standardized_rewards(out[0], out[1], cfg.temp_sample)[2]
+    assert torch.equal(rew_mean, res.rews_trace[-1])
+
+
+def test_last_step_is_the_plan_batch_launch():
+    """``last_step`` of a 2-seed ``plan_batch``: each seed's samples of
+    the last step from its own reset state, its final plan in place of
+    its sample 0; with sample 0 put back, each seed's mean reward is the
+    plan's last trace entry, bit for bit."""
+    env = envs.get_env("cartpole", device="cpu")
+    cfg = mbd.MBDConfig(Nsample=8, Hsample=4, Ndiffuse=4)
+    gens = [torch.Generator().manual_seed(5 + s) for s in range(2)]
+    res = mbd.plan_batch(env, cfg, gens)
+    state0, Y0s = F.last_step(env, cfg, 5, res.Ybars)
+    assert Y0s.shape == (16, 4, env.action_size)
+    Y0s = Y0s.reshape(2, 8, 4, -1)
+    for s in range(2):
+        assert torch.equal(Y0s[s, 0], res.Ybars[s, -1])
+        Y0s[s, 0] = F.last_step_samples(env, cfg, 5 + s, res.Ybars[s])[0]
+    out = mbd.rollout_batch(env, state0, Y0s.reshape(16, 4, -1))
+    for s in range(2):
+        rew_mean = mbd.standardized_rewards(
+            out[0][8 * s:8 * s + 8], out[1][8 * s:8 * s + 8],
+            cfg.temp_sample)[2]
+        assert torch.equal(rew_mean, res.rews_trace[s, -1])

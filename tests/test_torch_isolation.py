@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``mbd_tpu_torch`` and
-``chip_smoke.py`` and ``seed_quality.py`` loads neither JAX, flax nor
+``chip_smoke.py`` and ``seed_quality.py``, and the work table the smoke's
+bounds read (``benchmark/work/count.py``), loads neither JAX, flax nor
 optax, nor anything of the reference package ``mbd_tpu`` (the card's
 machine has no JAX)."""
 
@@ -17,6 +18,7 @@ names = [m.name for m in pkgutil.walk_packages(mbd_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke, seed_quality
+import benchmark.work.count
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax."))
@@ -44,7 +46,6 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "mbd_tpu_torch.utils.profiling",
                    "mbd_tpu_torch.utils.launcher",
                    "mbd_tpu_torch.cli.vis_explainer",
-                   "mbd_tpu_torch.notebooks.demo_1d",
-                   "mbd_tpu_torch.bench", "mbd_tpu_torch.utils.work"):
+                   "mbd_tpu_torch.notebooks.demo_1d"):
         assert module in listed.split()
     assert loaded.split() == ["LOADED"], loaded

@@ -3,13 +3,18 @@ plain C++ on the CPU, against the torch engine it follows term for term.
 
 The kernel body needs nothing of CUDA but its keywords and its group's
 barrier, broadcast, ballot and warp maximum, so a tiny shim turns
-``__global__``/``__device__`` into nothing, puts 32 threads with a
-barrier in place of a warp's lanes (``GROUP``), drops the launch code and
-runs ``rollout_sample`` warp by warp, 32/G samples each, the ragged
-tail's groups as on the card, at the env's G (``kernel_group``) unless a
-case names another. g++ builds it with ``-ffp-contract=off`` (no
-fused multiply–add, as ``nvcc --fmad=false``); float arithmetic on x86-64
-is IEEE single, as on the card. Only sin and cos come from another
+``__global__``/``__device__`` into nothing, puts 32 fibers on one thread
+in place of a warp's lanes (``SHIM``'s ``fiber``: each lane started on its
+own stack by glibc's ``ucontext``, switched by ``_setjmp``/``_longjmp``; a
+barrier hands over to the next lane, so no lane leaves one before its
+whole warp has reached it, and a warp whose lanes took unequal numbers of
+barriers is an error), drops the launch code and runs ``rollout_sample``
+warp by warp, 32/G samples each, the ragged tail's groups as on the card,
+at the env's G (``kernel_group``) unless a case names another; cases of
+one model, G and substeps share one build.
+g++ builds it with ``-ffp-contract=off`` (no fused multiply–add, as
+``nvcc --fmad=false``) and ``-std=c++17``, as nvcc; float arithmetic on
+x86-64 is IEEE single, as on the card. Only sin and cos come from another
 library than torch's, so the inputs take no sine or cosine of a nonzero
 angle: every hinge at its init angle, the free roots with zero angular
 velocity, one substep. The roots' positions, quaternions and slides
@@ -54,7 +59,9 @@ The retiring form (``rollout_retiring``) runs on the card's humanoid states
 with fewer warps resident than its samples need, side by side, each
 warp's groups taking samples from one queue (``atomicAdd`` as a
 ``__atomic_fetch_add``), and is held against the whole form and the
-plain version's ``retire`` output.
+plain version's ``retire`` output. The fibers interleave the warps in one
+fixed order, a phase of each in turn, so races between warps do not show
+here: the card's retiring cases (``tests/test_torch_cuda.py``) test them.
 
 Skips where g++ is missing.
 """
@@ -77,11 +84,11 @@ from mbd_tpu_torch.rollout.fused import rollout_outputs, rollout_qs
 from mbd_tpu_torch.sim.system import FREE, HINGE, SLIDE
 
 SHIM = """
-#include <barrier>
+#include <setjmp.h>
+#include <sys/mman.h>
+#include <ucontext.h>
 #include <cmath>
 #include <cstring>
-#include <memory>
-#include <thread>
 #include <vector>
 #define __global__
 #define __device__
@@ -97,19 +104,109 @@ inline float __int_as_float(int i) {
   std::memcpy(&f, &i, sizeof f);
   return f;
 }
+// The lanes of the resident warps as fibers on one thread, each with its
+// own stack. A lane runs to its next barrier (sync) and hands over to the
+// next lane in the ring that has not finished: lane 31 of a warp to lane 0
+// of the next warp, the last warp's to the first's. So every lane moves
+// one phase a turn, warp by warp, and no lane leaves a barrier before
+// every lane of its warp has reached it. A lane starts on its stack by
+// ucontext (makecontext, setcontext) and switches by _setjmp / _longjmp,
+// which leave the signal mask alone: swapcontext would set it, a system
+// call at every one of the tens of millions of switches the cases take.
+namespace fiber {
+constexpr size_t kPage = 4096, kStack = size_t{1} << 20;
+struct Lane {
+  ucontext_t start;
+  jmp_buf at;
+  char* stack;
+  long syncs;
+  bool started, done;
+};
+std::vector<Lane>* ring;
+void (*body)(void*, int, int);
+void* arg;
+int cur;
+jmp_buf home;
+
+// to lane i: its start the first time, then where it left
+[[noreturn]] inline void go(int i) {
+  Lane& l = (*ring)[cur = i];
+  if (l.started) _longjmp(l.at, 1);
+  l.started = true;
+  setcontext(&l.start);
+  __builtin_unreachable();
+}
+// from lane cur to the next lane that has not finished, or home
+inline void pass() {
+  const int n = static_cast<int>(ring->size()), from = cur;
+  for (int k = 1; k <= n; ++k) {
+    const int i = (from + k) % n;
+    if ((*ring)[i].done) continue;
+    if (i == from) return;
+    if (!_setjmp((*ring)[from].at)) go(i);
+    return;
+  }
+  _longjmp(home, 1);
+}
+inline void sync() {
+  ++(*ring)[cur].syncs;
+  pass();
+}
+inline void entry() {
+  body(arg, cur / 32, cur % 32);
+  (*ring)[cur].done = true;
+  pass();
+}
+// `warps` warps' lanes, their stacks (below each, a page that faults)
+// kept from one run to the next
+struct Warps {
+  std::vector<Lane> lanes;
+  explicit Warps(int warps) : lanes(32 * warps) {
+    for (auto& l : lanes) {
+      l.stack = static_cast<char*>(
+          mmap(nullptr, kPage + kStack, PROT_READ | PROT_WRITE,
+               MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0));
+      mprotect(l.stack, kPage, PROT_NONE);
+    }
+  }
+  ~Warps() {
+    for (auto& l : lanes) munmap(l.stack, kPage + kStack);
+  }
+  // f(warp, lane) on every lane to its end: 0, or 1 where the lanes of a
+  // warp took unequal numbers of barriers (on the card, undefined)
+  template <class F>
+  int run(F f) {
+    for (auto& l : lanes) {
+      l.syncs = 0;
+      l.started = l.done = false;
+      getcontext(&l.start);
+      l.start.uc_stack.ss_sp = l.stack + kPage;
+      l.start.uc_stack.ss_size = kStack;
+      l.start.uc_link = nullptr;  // entry ends in pass(), never returns
+      makecontext(&l.start, entry, 0);
+    }
+    ring = &lanes;
+    body = [](void* p, int w, int l) { (*static_cast<F*>(p))(w, l); };
+    arg = &f;
+    if (!_setjmp(home)) go(0);
+    for (size_t i = 0; i < lanes.size(); ++i)
+      if (lanes[i].syncs != lanes[i - i % 32].syncs) return 1;
+    return 0;
+  }
+};
+}  // namespace fiber
 """
-# A warp's 32 lanes as threads: one barrier for __syncwarp, and shared
-# words for __shfl_sync (one per group), __ballot_sync and
-# __reduce_max_sync (one per lane).
+# A warp's lanes as fibers: sync hands over to the next lane
+# (``fiber::sync``); shared words for __shfl_sync (one per group),
+# __ballot_sync and __reduce_max_sync (one per lane).
 GROUP = """
 template <int G>
 struct Group {
   int lane, base;
-  std::barrier<>* bar;
   float* words;
   unsigned* bits;
   int* ints;
-  void sync() const { bar->arrive_and_wait(); }
+  void sync() const { fiber::sync(); }
   float bcast(float v, int src) const {
     sync();
     if (lane == src) words[base / G] = v;
@@ -135,40 +232,38 @@ struct Group {
 };
 inline int popc(unsigned m) { return __builtin_popcount(m); }
 """
-# Warp by warp, 32 threads each, as on the card (groups of kG lanes, the
-# ragged tail's groups rolling sample N − 1 out again and writing
-# nothing), in slices filled with NaN first, so that a read before a write
-# shows in the output. The ``_rows`` entry points also take the rows
-# buffer, the others pass none; ``cpu_rollout_kin`` also copies out each
-# sample's link poses and motion subspaces as its last substep left them
-# in its slice (kin [N, NB · 7 + NV · 6]: xpos [NB, 3], xquat [NB, 4],
-# S [NV, 6]).
+# Warp by warp, as on the card (groups of kG lanes, the ragged tail's
+# groups rolling sample N − 1 out again and writing nothing), in slices
+# filled with NaN first, so that a read before a write shows in the
+# output. The ``_rows`` entry points also take the rows buffer, the others
+# pass none; ``cpu_rollout_kin`` also copies out each sample's link poses
+# and motion subspaces as its last substep left them in its slice
+# (kin [N, NB · 7 + NV · 6]: xpos [NB, 3], xquat [NB, 4], S [NV, 6]).
+# Each returns ``fiber::Warps::run``'s 0 or 1.
 DRIVER = """
 }  // namespace
-extern "C" void cpu_rollout_kin(const float* q0, const float* qd0,
-                                int per_sample, const float* U, float* rews,
-                                float* bad, float* qs, const float* xref,
-                                float* logpd, float* qd_out, int* first,
-                                int* rows, float* kin, int N, int H) {
+extern "C" int cpu_rollout_kin(const float* q0, const float* qd0,
+                               int per_sample, const float* U, float* rews,
+                               float* bad, float* qs, const float* xref,
+                               float* logpd, float* qd_out, int* first,
+                               int* rows, float* kin, int N, int H) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(W);
+  fiber::Warps warp(1);
   for (int w = 0; w * W < N; ++w) {
     std::memset(slice.data(), 0xff, W * sizeof(Slice));
-    std::barrier<> bar(32);
     float words[W] = {};
     unsigned bits[32] = {};
     int ints[32] = {};
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < 32; ++t)
-      lanes.emplace_back([&, t] {
-        const int grp = t / kG, n = w * W + grp;
-        const Group<kG> g{t % kG, t - t % kG, &bar, words, bits, ints};
-        rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
-                           per_sample, U, rews, bad, qs, xref, logpd, qd_out,
-                           first, rows, N, H);
-      });
-    for (auto& t : lanes) t.join();
+    const int fault = warp.run([&](int, int t) {
+      const int grp = t / kG, n = w * W + grp;
+      const Group<kG> g{t % kG, t - t % kG, words, bits, ints};
+      rollout_sample<kG>(g, slice[grp], n < N ? n : N - 1, n < N, q0, qd0,
+                         per_sample, U, rews, bad, qs, xref, logpd, qd_out,
+                         first, rows, N, H);
+    });
+    if (fault) return fault;
     for (int grp = 0; kin != nullptr && grp < W && w * W + grp < N; ++grp) {
       float* k = kin + (w * W + grp) * (NB * 7 + NV * 6);
       std::memcpy(k, slice[grp].xpos, sizeof slice[grp].xpos);
@@ -176,67 +271,98 @@ extern "C" void cpu_rollout_kin(const float* q0, const float* qd0,
       std::memcpy(k + NB * 7, slice[grp].S, sizeof slice[grp].S);
     }
   }
+  return 0;
 }
-extern "C" void cpu_rollout_rows(const float* q0, const float* qd0,
-                                 int per_sample, const float* U, float* rews,
-                                 float* bad, float* qs, const float* xref,
-                                 float* logpd, float* qd_out, int* first,
-                                 int* rows, int N, int H) {
-  cpu_rollout_kin(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out,
-                  first, rows, nullptr, N, H);
+extern "C" int cpu_rollout_rows(const float* q0, const float* qd0,
+                                int per_sample, const float* U, float* rews,
+                                float* bad, float* qs, const float* xref,
+                                float* logpd, float* qd_out, int* first,
+                                int* rows, int N, int H) {
+  return cpu_rollout_kin(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd,
+                         qd_out, first, rows, nullptr, N, H);
 }
-extern "C" void cpu_rollout(const float* q0, const float* qd0,
-                            int per_sample, const float* U, float* rews,
-                            float* bad, float* qs, const float* xref,
-                            float* logpd, float* qd_out, int* first, int N,
-                            int H) {
-  cpu_rollout_rows(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd, qd_out,
-                   first, nullptr, N, H);
+extern "C" int cpu_rollout(const float* q0, const float* qd0, int per_sample,
+                           const float* U, float* rews, float* bad, float* qs,
+                           const float* xref, float* logpd, float* qd_out,
+                           int* first, int N, int H) {
+  return cpu_rollout_rows(q0, qd0, per_sample, U, rews, bad, qs, xref, logpd,
+                          qd_out, first, nullptr, N, H);
 }
-// The retiring form with `warps` warps resident at once, all running side
-// by side: their groups start with samples 0 … warps · 32/kG − 1 and take
-// the rest from queue[0] (queue[1]: the env steps run), each warp leaving
-// when its groups find it empty.
-extern "C" void cpu_rollout_retire_rows(const float* q0, const float* qd0,
-                                        int per_sample, const float* U,
-                                        float* rews, float* bad, int* first,
-                                        int* rows, int* queue, int N, int H,
-                                        int warps) {
+// The retiring form with `warps` warps resident at once, side by side:
+// their groups start with samples 0 … warps · 32/kG − 1 and take the rest
+// from queue[0] (queue[1]: the env steps run), each warp leaving when its
+// groups find it empty.
+extern "C" int cpu_rollout_retire_rows(const float* q0, const float* qd0,
+                                       int per_sample, const float* U,
+                                       float* rews, float* bad, int* first,
+                                       int* rows, int* queue, int N, int H,
+                                       int warps) {
   std::memcpy(&tables, &kTablesInit, sizeof(Tables));
   constexpr int W = 32 / kG;
   std::vector<Slice> slice(warps * W);
   std::vector<Book> book(warps * W);
   std::memset(slice.data(), 0xff, warps * W * sizeof(Slice));
   std::memset(book.data(), 0xff, warps * W * sizeof(Book));
-  std::vector<std::unique_ptr<std::barrier<>>> bars;
-  for (int w = 0; w < warps; ++w)
-    bars.push_back(std::make_unique<std::barrier<>>(32));
   std::vector<float> words(warps * W);
   std::vector<unsigned> bits(warps * 32);
   std::vector<int> ints(warps * 32);
   queue[0] = queue[1] = 0;
-  std::vector<std::thread> lanes;
-  for (int t = 0; t < 32 * warps; ++t)
-    lanes.emplace_back([&, t] {
-      const int w = t / 32, l = t % 32, grp = w * W + l / kG;
-      const Group<kG> g{l % kG, l - l % kG, bars[w].get(), &words[w * W],
-                        &bits[w * 32], &ints[w * 32]};
-      rollout_retiring<kG>(g, slice[grp], book[grp], grp, q0, qd0,
-                           per_sample, U, rews, bad, first, rows, queue,
-                           warps * W, N, H);
-    });
-  for (auto& t : lanes) t.join();
+  return fiber::Warps(warps).run([&](int w, int l) {
+    const int grp = w * W + l / kG;
+    const Group<kG> g{l % kG, l - l % kG, &words[w * W], &bits[w * 32],
+                      &ints[w * 32]};
+    rollout_retiring<kG>(g, slice[grp], book[grp], grp, q0, qd0, per_sample,
+                         U, rews, bad, first, rows, queue, warps * W, N, H);
+  });
 }
-extern "C" void cpu_rollout_retire(const float* q0, const float* qd0,
-                                   int per_sample, const float* U,
-                                   float* rews, float* bad, int* first,
-                                   int* queue, int N, int H, int warps) {
-  cpu_rollout_retire_rows(q0, qd0, per_sample, U, rews, bad, first, nullptr,
-                          queue, N, H, warps);
+extern "C" int cpu_rollout_retire(const float* q0, const float* qd0,
+                                  int per_sample, const float* U, float* rews,
+                                  float* bad, int* first, int* queue, int N,
+                                  int H, int warps) {
+  return cpu_rollout_retire_rows(q0, qd0, per_sample, U, rews, bad, first,
+                                 nullptr, queue, N, H, warps);
+}
+"""
+# each entry point's arguments: pointers, ints
+ENTRIES = {
+    "cpu_rollout": [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2,
+    "cpu_rollout_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2,
+    "cpu_rollout_kin": [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2,
+    "cpu_rollout_retire": [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+    "cpu_rollout_retire_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3,
+}
+# The group's shuffle, ballot and warp maximum alone: `warps` warps of
+# groups of kG lanes side by side, `rounds` of each op back to back from
+# every lane, in [round, warp, lane] order; with extra ≥ 0, warp 0's lane
+# extra takes one barrier more than the others.
+GROUP_DRIVER = """
+extern "C" int cpu_group_ops(const float* v, const int* p, const int* x,
+                             const int* src, float* bc, unsigned* bal,
+                             int* mx, int rounds, int warps, int extra) {
+  std::vector<float> words(warps * 32 / kG);
+  std::vector<unsigned> bits(warps * 32);
+  std::vector<int> ints(warps * 32);
+  return fiber::Warps(warps).run([&](int w, int l) {
+    const Group<kG> g{l % kG, l - l % kG, &words[w * 32 / kG], &bits[w * 32],
+                      &ints[w * 32]};
+    const auto at = [&](int r) { return (r * warps + w) * 32 + l; };
+    for (int r = 0; r < rounds; ++r) bc[at(r)] = g.bcast(v[at(r)], src[r]);
+    for (int r = 0; r < rounds; ++r) bal[at(r)] = g.ballot(p[at(r)] != 0);
+    for (int r = 0; r < rounds; ++r) mx[at(r)] = g.warp_max(x[at(r)]);
+    if (w == 0 && l == extra) g.sync();
+  });
 }
 """
 ATOL = 2e-6
 N = 130
+# the libraries built, by source: cases of one model, G and substeps share
+# one build
+BUILT = {}
 
 
 def _cpu_kernel(env, out_dir, G):
@@ -251,31 +377,38 @@ def _cpu_kernel(env, out_dir, G):
     a = src.index("// --- begin group ---")
     b = src.index("// --- end group ---")
     src = src[:a] + GROUP + src[b:src.index("// --- launch ---")] + DRIVER
+    if src not in BUILT:
+        BUILT[src] = _build(gxx, src, out_dir, ENTRIES)
+    return BUILT[src]
+
+
+def _build(gxx, src, out_dir, entries):
+    """g++'s shared library of ``src``, its ``entries`` (name: argument
+    types) as functions that raise where the shim returns 1. Without
+    ``_FORTIFY_SOURCE``, whose checked longjmp refuses a jump to another
+    lane's stack."""
     cpp, so = os.path.join(out_dir, "k.cpp"), os.path.join(out_dir, "k.so")
     with open(cpp, "w") as f:
         f.write(src)
     proc = subprocess.run(
-        [gxx, "-O1", "-ffp-contract=off", "-std=c++20", "-pthread",
-         "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", so,
-         cpp], capture_output=True, text=True)
+        [gxx, "-O1", "-U_FORTIFY_SOURCE", "-ffp-contract=off", "-std=c++17",
+         "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", so, cpp],
+        capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(so)
-    lib.cpu_rollout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-    lib.cpu_rollout.restype = None
-    lib.cpu_rollout_retire.argtypes = [ctypes.c_void_p] * 2 + \
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    lib.cpu_rollout_retire.restype = None
-    lib.cpu_rollout_rows.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-    lib.cpu_rollout_rows.restype = None
-    lib.cpu_rollout_retire_rows.argtypes = [ctypes.c_void_p] * 2 + \
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-    lib.cpu_rollout_retire_rows.restype = None
-    lib.cpu_rollout_kin.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
-    lib.cpu_rollout_kin.restype = None
-    return lib
+
+    def checked(fn):
+        def call(*args):
+            assert fn(*args) == 0, \
+                "the lanes of a warp took unequal numbers of barriers"
+        return call
+
+    out = {}
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        out[name] = checked(fn)
+    return SimpleNamespace(**out)
 
 
 def _inputs(sys, gen):
@@ -610,21 +743,21 @@ def test_kernel_source_first_flag(tmp_path):
                                    dtype=torch.int32))
 
 
-def test_kernel_source_retiring_form(tmp_path, libm_math):
+def _retiring(tmp_path, warps):
     """The retiring form (``rollout_retiring``) on the fixture's states,
-    one substep an env step over 4 steps, with 2 warps resident (4 groups
-    of 16 lanes) for 32 samples, so that groups take most samples from the
-    queue, the flagged ones ending at step 0: flags and first flags are
-    the whole form's; each sample's rewards up to and including its first
-    flagged step, and every reward of a clean sample, are the whole
-    form's bit for bit; the rest are the NaN of bits 0x7fffffff; every
-    sample asked the queue once, and the kernel counted the steps it ran,
-    each sample's up to its first flag; and all of it is the plain version's
-    ``retire`` output (under ``libm_math``, for the hinges' angles)."""
+    one substep an env step over 4 steps, with ``warps`` warps resident
+    (``warps`` · 32/16 groups of 16 lanes) for 32 samples, so that groups
+    take most samples from the queue, the flagged ones ending at step 0:
+    flags and first flags are the whole form's; each sample's rewards up
+    to and including its first flagged step, and every reward of a clean
+    sample, are the whole form's bit for bit; the rest are the NaN of bits
+    0x7fffffff; every sample asked the queue once, and the kernel counted
+    the steps it ran, each sample's up to its first flag; and all of it is
+    the plain version's ``retire`` output (under ``libm_math``, for the
+    hinges' angles)."""
     env, d, q0, qd0, U = _flag_fixture(H=4)
     lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
     n, H = q0.shape[1], U.shape[0]
-    warps = 2
     assert warps * 32 // env.kernel_group < n
     rews, bad = torch.empty((H, n)), torch.empty(n)
     first = torch.empty(n, dtype=torch.int32)
@@ -653,6 +786,19 @@ def test_kernel_source_retiring_form(tmp_path, libm_math):
     assert torch.equal(plain[1], bad_r) and torch.equal(plain[2], first_r)
 
 
+def test_kernel_source_retiring_form(tmp_path, libm_math):
+    """``_retiring`` with 2 warps resident."""
+    _retiring(tmp_path, 2)
+
+
+@pytest.mark.parametrize("warps", [1, 4])
+def test_kernel_source_retiring_form_resident_warps(warps, tmp_path,
+                                                    libm_math):
+    """``_retiring`` with 1 warp resident, whose groups alone drain the
+    queue, and with 4 side by side."""
+    _retiring(tmp_path, warps)
+
+
 def _flagging(sys, gen):
     """``_past_limits`` with every fourth sample's first dof at 150, past
     the speed that flags, so that it flags at env step 0 and its later
@@ -662,25 +808,35 @@ def _flagging(sys, gen):
     return q, qd.contiguous()
 
 
-@pytest.mark.parametrize("name", ["humanoidstandup", "hopper"])
+# the models the plain reference (benchmark/reference/models/) carries
+REFERENCE_MODELS = ("hopper", "humanoidrun", "humanoidstandup")
+
+
+@pytest.mark.parametrize("name", ["humanoidstandup", "hopper", "humanoidrun",
+                                  "ant", "pushT", "walker2d"])
 def test_kernel_source_counts_acting_contact_rows(name, tmp_path, libm_math):
     """The rows buffer: each sample's contact-row substeps whose force
     cap is not 0, in the env steps that start with it unflagged, at the
     env's own substeps over 3 env steps, from states with limits passed,
-    capsules in the floor in some samples and clear in others, and a
-    quarter of the samples flagged at step 0. The whole form's and the
-    retiring form's (2 warps resident, the rest refills) equal the plain
-    version's count and the plain reference's recorder
-    (``benchmark/reference/engine.py``'s ``Recorder``) sample by sample;
+    capsules (humanoidrun's spheres, ant's) in the floor in some samples
+    and clear in others (pushT's pusher inside a bar, touching one or
+    clear, the slider turned), and a quarter of the samples flagged at
+    step 0. The whole form's and the retiring form's (2 warps resident,
+    the rest refills) equal the plain version's count, and where the
+    plain reference carries the model its recorder's
+    (``benchmark/reference/engine.py``'s ``Recorder``), sample by sample;
     rewards, flags and first flags are the plain version's bit for bit
     (under ``libm_math``, for the moved hinges' angles)."""
-    from benchmark.reference import models
-    from benchmark.reference.rollout import rollout
+    from mbd_tpu_torch.sim import batched as BT
 
     env = envs.get_env(name, device="cpu")
     lib = _cpu_kernel(env, str(tmp_path), env.kernel_group)
     gen = torch.Generator().manual_seed(0)
-    q0, qd0 = _flagging(env.sys, gen)
+    if name == "pushT":
+        q0, qd0 = _pusht_inputs(env.sys, gen, True)
+        qd0[0, ::4] = 150.0
+    else:
+        q0, qd0 = _flagging(env.sys, gen)
     H = 3
     Y0s = 2 * torch.rand((N, H, env.action_size), generator=gen) - 1
     U = Y0s.permute(1, 2, 0).contiguous()
@@ -698,7 +854,6 @@ def test_kernel_source_counts_acting_contact_rows(name, tmp_path, libm_math):
         queue.data_ptr(), N, H, 2)
     state = SimpleNamespace(pipeline_state=SimpleNamespace(q=q0, qd=qd0))
     plain = rollout_outputs(env, state, Y0s, first=True, rows=True)
-    _, _, work = rollout(models.load(name, "cpu"), q0, qd0, Y0s, record=True)
     assert torch.equal(rews.t().contiguous().view(torch.int32),
                        plain[0].contiguous().view(torch.int32))
     assert torch.equal(bad, plain[1]) and torch.equal(bad_r, bad)
@@ -706,12 +861,19 @@ def test_kernel_source_counts_acting_contact_rows(name, tmp_path, libm_math):
     assert bool((first == 0).any()) and bool((first < 0).any())
     live = torch.where(first >= 0, first + 1, H)
     assert queue.tolist() == [N, int(live.sum())]
-    assert torch.equal(work.live_steps, live.float())
     assert torch.equal(rows, plain[3]) and torch.equal(rows_r, rows)
-    assert torch.equal(rows.float(), work.contacts)
+    n_contacts = len(BT.collide_b(env.sys, BT.fk_b(env.sys, q0)))
+    if name in REFERENCE_MODELS:
+        from benchmark.reference import models
+        from benchmark.reference.rollout import rollout
+
+        _, _, work = rollout(models.load(name, "cpu"), q0, qd0, Y0s,
+                             record=True)
+        assert torch.equal(work.live_steps, live.float())
+        assert torch.equal(rows.float(), work.contacts)
+        assert work.n_contacts == n_contacts
     # rows act in some substeps and not in others
-    assert 0 < int(rows.sum()) < int(live.sum()) * env.n_frames * \
-        work.n_contacts
+    assert 0 < int(rows.sum()) < int(live.sum()) * env.n_frames * n_contacts
 
 
 def _bent(sys, gen):
@@ -770,6 +932,44 @@ def test_kernel_source_fk_by_tree_level(name, G, tmp_path, libm_math,
     assert torch.equal(rews.t().contiguous().view(torch.int32),
                        out[0].contiguous().view(torch.int32))
     assert torch.equal(bad, out[1])
+
+
+@pytest.mark.parametrize("G", [8, 16, 32])
+def test_fiber_group_ops(G, tmp_path):
+    """The shim's ``Group`` on its fibers: 2 warps side by side, 3 rounds
+    back to back of a broadcast from a lane of each group, then of a ballot
+    and of a warp maximum from every lane, so that a round's shared words
+    are written while lanes may still read the last round's: each lane
+    gets its own group's lane's value, its group's bits and its own warp's
+    maximum (negative ones too); a lane that takes one barrier more than
+    the rest of its warp is an error, as on the card it is undefined."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _build(gxx, SHIM + f"constexpr int kG = {G};\n" + GROUP +
+                 GROUP_DRIVER, str(tmp_path),
+                 {"cpu_group_ops": [ptr] * 7 + [i32] * 3})
+    rounds, warps = 3, 2
+    gen = torch.Generator().manual_seed(G)
+    shape = (rounds, warps, 32)
+    v = torch.randn(shape, generator=gen)
+    p = (torch.rand(shape, generator=gen) < 0.5).to(torch.int32)
+    x = torch.randint(-1000, 1000, shape, generator=gen, dtype=torch.int32)
+    src = torch.randint(0, G, (rounds,), generator=gen, dtype=torch.int32)
+    bc, mx = torch.empty(shape), torch.empty(shape, dtype=torch.int32)
+    bal = torch.empty(shape, dtype=torch.int32)
+    args = [t.data_ptr() for t in (v, p, x, src, bc, bal, mx)]
+    lib.cpu_group_ops(*args, rounds, warps, -1)
+    base = torch.arange(32) - torch.arange(32) % G
+    lanes = (base[None] + src[:, None]).long()[:, None].expand(shape)
+    assert torch.equal(bc, v.gather(2, lanes))
+    bit = p.view(rounds, warps, 32 // G, G) << torch.arange(G)
+    want = bit.sum(-1).repeat_interleave(G, dim=-1).to(torch.int32)
+    assert torch.equal(bal, want)
+    assert torch.equal(mx, x.amax(-1, keepdim=True).expand(shape))
+    with pytest.raises(AssertionError, match="unequal numbers"):
+        lib.cpu_group_ops(*args, rounds, warps, 5)
 
 
 # the serial steps of forward kinematics a substep: the tree's levels

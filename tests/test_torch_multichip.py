@@ -194,22 +194,43 @@ def test_same_bits_tells_signed_zeros_and_nans_apart():
     assert not multichip.same_bits(torch.ones(2), torch.ones(3))
 
 
-def test_cases_are_the_bench_cells_configs():
-    """Each case runs at its bench cell's published config, and PPO at
-    pushT's reference config for 2 iterations."""
-    from mbd_tpu_torch import bench
+@pytest.mark.parametrize("name", multichip.CASES)
+def test_case_config_is_the_reference_config(name):
+    """Each case at the JAX package's own config: the planners' at their
+    models' ``recommended_config`` (humanoidrun 8192 / 50 / 300, hopper
+    over 8 seeds, humanoidtrack with the demo), MPPI at
+    ``path_integral.recommended_config``, and PPO at ``train.PPO_CONFIGS``'
+    pushT for 2 iterations and one eval."""
+    import dataclasses
+
+    from mbd_tpu.planners import path_integral as jax_pi
+    from mbd_tpu.rl import train as jax_train
 
     table = multichip.cases()
     assert tuple(table) == multichip.CASES
-    for name in ("humanoidrun", "hopper_seeds8", "humanoidtrack_demo"):
-        assert table[name].cfg == bench.CELLS[name].cfg
-        assert table[name].seeds == bench.CELLS[name].seeds
-    assert table["dryrun"].cfg == bench.CELLS["humanoidrun"].cfg
-    assert table["dryrun"].samples() == 8192
-    assert table["hopper_seeds8"].samples() == 16384
-    ppo_cfg = table["pushT_ppo"].cfg
-    assert ppo_cfg.num_timesteps == 2 * ppo_cfg.num_envs \
-        * ppo_cfg.unroll_length
+    case = table[name]
+    fields = dataclasses.asdict(case.cfg)
+    if case.kind in ("step", "plan"):
+        ref = dataclasses.asdict(jax_mbd.recommended_config(
+            case.model, jax_mbd.MBDConfig(
+                enable_demo=name == "humanoidtrack_demo")))
+    elif case.kind == "mppi":
+        ref = dataclasses.asdict(jax_pi.recommended_config(
+            case.model, jax_pi.PathIntegralConfig(update_method="mppi")))
+    else:
+        ref = dict(jax_train.PPO_CONFIGS[case.model])
+        assert fields.pop("num_timesteps") == 2 * fields["num_envs"] \
+            * fields["unroll_length"]
+        assert fields.pop("num_evals") == 1
+        fields = {k: v for k, v in fields.items() if k in ref}
+        ref.pop("num_timesteps")
+        ref.pop("num_evals")
+    assert fields == ref
+    assert case.seeds == (8 if name == "hopper_seeds8" else 1)
+    samples = {"dryrun": 8192, "humanoidrun": 8192, "hopper_seeds8": 16384,
+               "humanoidtrack_demo": 2048, "hopper_mppi": 2048}
+    if name in samples:
+        assert case.samples() == samples[name]
 
 
 def test_main_needs_two_cards(capsys):

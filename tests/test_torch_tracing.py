@@ -4,7 +4,8 @@ the planner's spans and the rollout's counters, recorded only while a
 with ``counters=True``), the plan the same bit for bit either way; the
 recorder's bounds; the mesh's ranks handing theirs back; and the plain
 engine's first flagged env step, the counterpart of the kernel's
-first-flag buffer, against its flags and against shorter rollouts.
+first-flag buffer, against its flags and against shorter rollouts; and
+the busy share's union of a trace's intervals.
 
 The tiny plan is ``torch_mesh_ranks.TRACE_CFG``: hopper, 2 seeds, 16
 samples, H 4, 4 diffusion steps (T = 3 reverse steps)."""
@@ -453,3 +454,23 @@ def test_wrapper_refuses_retire_past_the_flag():
         with pytest.raises(ValueError, match="first flag"):
             rollout_cuda.rollout_rewards_cuda(env, state0, Y, retire=True,
                                               **kw)
+
+
+def test_busy_share_is_the_union_of_intervals():
+    """Overlapping, nested, touching and disjoint intervals, unsorted."""
+    spans = [(20.0, 25.0), (0.0, 10.0), (5.0, 15.0), (24.0, 30.0),
+             (40.0, 41.0), (40.2, 40.7), (41.0, 42.0)]
+    assert profiling.busy_us(spans) == 15.0 + 10.0 + 2.0
+    assert profiling.busy_us(iter(spans)) == 27.0
+    assert profiling.busy_us([]) == 0.0
+
+    def event(name, lo, hi):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(
+            start=lo, end=hi, elapsed_us=lambda: hi - lo))
+
+    totals = profiling.kernel_totals([
+        event("void rollout_kernel<8>(float*)", 0.0, 3.0),
+        event("elementwise", 1.0, 2.0),
+        event("void rollout_kernel<8>(float*)", 4.0, 8.0)])
+    assert profiling.named(totals, "rollout_kernel") == (2, 7.0)
+    assert profiling.named(totals, "nosuch") == (0, 0)

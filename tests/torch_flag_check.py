@@ -1,11 +1,12 @@
-"""The humanoids' validity flags on the last reverse step of the bench's
-humanoid cells, held sample by sample against the reference's engine.
+"""The humanoids' validity flags on the last reverse step of three humanoid
+plans, held sample by sample against the reference's engine.
 
     # on the card: plan each cell at seed 0, rebuild its last step
-    # (bench.last_step) and find each sample's first flagged substep
+    # (last_step) and find each sample's first flagged substep
     # (replay.first_flags), its flags held against the kernel's and the
-    # bench's parity; one JSON line a cell; the fixture of flagged and
-    # clean states written to OUT (replay.FLAG_STATES by default)
+    # parity of the kernel with the plain engine (parity); one JSON line a
+    # cell; the fixture of flagged and clean states written to OUT
+    # (replay.FLAG_STATES by default)
     python tests/torch_flag_check.py --card [--out OUT]
     # on the CPU: one eager JAX substep from every fixture state, batched
     # per model, against the card's verdict (about 25 s)
@@ -38,7 +39,9 @@ from mbd_tpu_torch import envs  # noqa: E402
 from mbd_tpu_torch.rollout import replay  # noqa: E402
 from mbd_tpu_torch.sim import batched as BT  # noqa: E402
 
-# the bench's humanoid cells, and the cell each model's fixture comes from
+# the cells: humanoidrun at its flagship config and at the JAX bench's
+# north star of 1024 samples, and humanoidtrack with the demo; and the cell
+# each model's fixture comes from
 CELLS = ("humanoidrun", "humanoidrun_n1024", "humanoidtrack_demo")
 FIXTURE_CELLS = {"humanoidrun": "humanoidrun",
                  "humanoidtrack": "humanoidtrack_demo"}
@@ -167,12 +170,82 @@ def fixture_states(env, rec):
         qd_margin=qd_margin, root_margin=root_margin), same
 
 
+def cell_configs():
+    """The cells' models and configs: {cell: (model, MBDConfig)}."""
+    from mbd_tpu_torch.planners import mbd
+
+    return {
+        "humanoidrun": ("humanoidrun", mbd.recommended_config("humanoidrun")),
+        "humanoidrun_n1024": ("humanoidrun", mbd.MBDConfig(
+            Nsample=1024, Hsample=50, Ndiffuse=300, temp_sample=0.1)),
+        "humanoidtrack_demo": ("humanoidtrack", mbd.recommended_config(
+            "humanoidtrack", mbd.MBDConfig(enable_demo=True))),
+    }
+
+
+def last_step_samples(env, cfg, seed: int,
+                      Ybars: torch.Tensor) -> torch.Tensor:
+    """The samples [Nsample, H, nu] of the last reverse step of the plan
+    of ``seed`` whose iterates are ``Ybars`` [T, H, nu]: its noise drawn
+    again from a generator seeded as the plan's (the reset first, then a
+    draw a step), formed as the planner forms them, clamp(ε·σ₁ + Ȳ, −1,
+    1), Ȳ the iterate before the last step."""
+    from mbd_tpu_torch.core.schedule import make_schedule
+
+    device = Ybars.device
+    gen = torch.Generator(device).manual_seed(seed)
+    env.reset(gen)
+    shape = (cfg.Nsample, cfg.Hsample, env.action_size)
+    for _ in range(cfg.Ndiffuse - 1):
+        eps = torch.randn(shape, generator=gen, device=device)
+    sched = make_schedule(cfg.Ndiffuse, cfg.beta0, cfg.betaT, device=device)
+    prev = Ybars[-2] if len(Ybars) > 1 else torch.zeros_like(Ybars[-1])
+    return torch.clamp(eps * sched.sigmas[1] + prev, -1.0, 1.0)
+
+
+def last_step(env, cfg, seed: int, Ybars: torch.Tensor):
+    """The launch of the last reverse step of the plan of seeds seed… over
+    Ybars [S, T, H, nu]: (the initial states of its S·Nsample samples, the
+    samples), each seed's final plan in place of its sample 0."""
+    from mbd_tpu_torch.planners import mbd
+
+    S, N = Ybars.shape[0], cfg.Nsample
+    gens = [torch.Generator(Ybars.device).manual_seed(seed + s)
+            for s in range(S)]
+    state0 = mbd.batch_states(env, [env.reset(g) for g in gens], N)
+    Y0s = torch.stack([last_step_samples(env, cfg, seed + s, Ybars[s])
+                       for s in range(S)])
+    Y0s[:, 0] = Ybars[:, -1]
+    return state0, Y0s.reshape((S * N,) + Y0s.shape[2:])
+
+
+def parity(env, cfg, state0, Y0s: torch.Tensor) -> dict:
+    """The kernel against the plain engine on the last step's launch
+    (``last_step``): flags equal, max |Δ| ≤ 1e-5, the demo log-density
+    ≤ 2.4e-7 (``chip_smoke.py``'s tolerances)."""
+    from mbd_tpu_torch.ops import rollout_cuda
+    from mbd_tpu_torch.rollout import fused
+
+    demo = cfg.enable_demo
+    plain = fused.rollout_outputs(env, state0, Y0s, demo=demo)
+    got = rollout_cuda.rollout_rewards_cuda(env, state0, Y0s, demo=demo)
+    err = float((got[0] - plain[0]).abs().max())
+    out = dict(shape=f"{Y0s.shape[0]}x{Y0s.shape[1]}", max_abs_err=err,
+               flags_equal=bool(torch.equal(got[1], plain[1])),
+               flagged=int(got[1].sum()))
+    ok = out["flags_equal"] and err <= 1e-5
+    if demo:
+        out["logpd_max_abs_err"] = float((got[2] - plain[2]).abs().max())
+        ok = ok and out["logpd_max_abs_err"] <= 2.4e-7
+    out["ok"] = ok
+    return out
+
+
 def card(out: str) -> int:
     """``--card``: every cell's line, then the fixture; exit 1 when a
     check fails."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mbd_tpu_torch import bench
     from mbd_tpu_torch.ops import rollout_cuda as rc
     from mbd_tpu_torch.planners import mbd
     from mbd_tpu_torch.utils import profiling
@@ -182,23 +255,23 @@ def card(out: str) -> int:
         return 1
     gpu = profiling.card()
     print(gpu, flush=True)
-    models = sorted({bench.CELLS[c].env for c in CELLS})
+    configs = cell_configs()
+    models = sorted({model for model, _ in configs.values()})
     with ThreadPoolExecutor(len(models)) as pool:
         builds = {m: pool.submit(rc.build, envs.get_env(m, device="cuda"))
                   for m in models}
         ok, arrays = True, {"device": np.array(gpu)}
         for name in CELLS:
-            cell = bench.CELLS[name]
-            cfg = cell.cfg
-            env = envs.get_env(cell.env, device="cuda")
-            builds[cell.env].result()
+            model, cfg = configs[name]
+            env = envs.get_env(model, device="cuda")
+            builds[model].result()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = mbd.plan(env, cfg, torch.Generator("cuda").manual_seed(0))
             torch.cuda.synchronize()
             plan_s = time.perf_counter() - t0
-            state0, Y0s = bench.last_step(env, cfg, 0, res.Ybars[None])
-            par, _ = bench.parity(env, cfg, state0, Y0s)
+            state0, Y0s = last_step(env, cfg, 0, res.Ybars[None])
+            par = parity(env, cfg, state0, Y0s)
             kernel = rc.rollout_rewards_cuda(env, state0, Y0s)[1]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -215,10 +288,10 @@ def card(out: str) -> int:
                                                             rec.bad)),
                         parity_ok=par["ok"], plan_s=plan_s,
                         first_flags_s=flags_s, card=gpu)
-            if cell.env in FIXTURE_CELLS and FIXTURE_CELLS[cell.env] == name:
+            if FIXTURE_CELLS.get(model) == name:
                 states, line["fixture_equal_record"] = fixture_states(env,
                                                                       rec)
-                arrays.update({f"{cell.env}/{k}": v
+                arrays.update({f"{model}/{k}": v
                                for k, v in states.items()})
             ok = ok and line["flags_equal_kernel"] and line["parity_ok"] \
                 and line["flagged"] == line["kernel_flagged"] \
